@@ -1,0 +1,39 @@
+"""Carry a scene and camera of the JAX package over to the port.
+
+``from_reference`` reads every leaf through ``np.asarray``, so it works on
+JAX arrays without importing JAX. The tests use it to feed both packages the
+same scene, including scenes the port has no builder for (textured scenes,
+loaded meshes). A JAX scene's BVH (``accel``) is not carried over: the port
+has no acceleration structure yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .scene.scene import Camera, Geometry, Materials, Scene, Textures
+
+
+def _leaves(cls, obj):
+    return cls(**{f.name: torch.from_numpy(np.array(getattr(obj, f.name)))
+                  for f in dataclasses.fields(cls)})
+
+
+def from_reference(scene, camera=None):
+    """Convert a JAX-package ``Scene`` (and optionally its ``Camera``) to the
+    port's, leaf for leaf and bit for bit. Returns ``(scene, camera)``; the
+    camera is None when none was given."""
+    port_scene = Scene(
+        geom=_leaves(Geometry, scene.geom),
+        materials=_leaves(Materials, scene.materials),
+        textures=_leaves(Textures, scene.textures),
+        lights=torch.from_numpy(np.array(scene.lights)),
+        has_opacity_tex=bool(scene.has_opacity_tex),
+        has_any_texture=bool(scene.has_any_texture),
+        has_translucent=bool(scene.has_translucent),
+    )
+    port_camera = None if camera is None else _leaves(Camera, camera)
+    return port_scene, port_camera
