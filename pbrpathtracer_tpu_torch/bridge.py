@@ -1,4 +1,5 @@
-"""Carry a scene and camera of the JAX package over to the port.
+"""Carry a scene, camera or parameter dict of the JAX package over to the
+port.
 
 ``from_reference`` reads every leaf through ``np.asarray``, so it works on
 JAX arrays without importing JAX. The tests use it to feed both packages the
@@ -37,3 +38,9 @@ def from_reference(scene, camera=None):
     )
     port_camera = None if camera is None else _leaves(Camera, camera)
     return port_scene, port_camera
+
+
+def params_from_reference(params: dict) -> dict:
+    """Convert a JAX-package params dict (``diff.params.get_params``) to the
+    port's, key for key and bit for bit."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in params.items()}

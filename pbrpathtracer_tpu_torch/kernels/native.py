@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by nvcc, by hand, into one shared
-library with a plain C interface, loaded with ``ctypes``. The library goes to
-``csrc/_build/`` and is rebuilt when a source is newer than it. Only the
-repository's sources are used; a failed build raises and never falls back.
+Every ``csrc/*.cu`` file is compiled by its own nvcc, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library goes to ``csrc/_build/`` and
+is rebuilt when a source is newer than it. Only the repository's sources
+are used; a failed build raises and never falls back.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that ``a*b + c`` is not
 contracted into an FMA and the kernels agree bit for bit with their plain
@@ -25,8 +26,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_CSRC, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpbrkernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -40,6 +40,8 @@ _SIGNATURES = {
                             _p, _p, _p, _p, _p],
     # idx, table, n, n_rows, width, out, stream
     "pbr_packgather_fwd": [_p, _p, _i, _i, _i, _p, _p],
+    # idx, cot, n, n_rows, width, lanes_per_block, partial, out, stream
+    "pbr_packgather_bwd": [_p, _p, _i, _i, _i, _i, _p, _p, _p],
 }
 
 
@@ -68,15 +70,39 @@ def build() -> str:
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stdout + proc.stderr
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for src in (s for s in sources if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR,
+                           f"{os.path.basename(src)}.{pid}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = ""
+    failed = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{pid}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{' '.join(cmd)}\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log + link.stdout + link.stderr
 
 
 def load() -> ctypes.CDLL:

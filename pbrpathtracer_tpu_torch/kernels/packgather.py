@@ -1,12 +1,17 @@
-"""Pack-gather forward: the CUDA kernel ``csrc/packgather.cu`` and its plain
-torch version.
+"""Pack-gather: the CUDA kernels ``csrc/packgather.cu`` (forward K2,
+backward K3) and their plain torch versions.
 
-Replaces ``pbrpathtracer_tpu/kernels/packgather_pallas.py`` (``_run_fwd``
-via ``gather_rows_t``): ``gather_rows_t(table, idx)`` returns ``table[idx]``
-transposed to a field-major f32[W, N] block; an out-of-range id gives a zero
-row. Unlike the TPU kernel it takes a table of any height.
+Replaces ``pbrpathtracer_tpu/kernels/packgather_pallas.py``: ``_run_fwd``
+and ``_run_bwd`` via the ``jax.custom_vjp`` ``gather_rows_t``.
+``gather_rows_t(table, idx)`` returns ``table[idx]`` transposed to a
+field-major f32[W, N] block; an out-of-range id gives a zero row. Its
+gradient w.r.t. ``table`` is ``gather_rows_t_bwd``: the cotangent columns
+summed per id, out-of-range ids dropped; ``idx`` gets none. Unlike the TPU
+kernels these take a table of any height.
 
-Tensors on the CPU take the plain version; CUDA tensors launch the kernel.
+Tensors on the CPU take the plain versions; CUDA tensors launch the kernels.
+The backward kernel is deterministic (no atomics): the same inputs give the
+same bits on every call.
 """
 
 from __future__ import annotations
@@ -14,6 +19,11 @@ from __future__ import annotations
 import torch
 
 from . import native
+
+# Lanes per block of the backward's first pass, at least; fewer blocks when
+# their f64 partial tables would outgrow PARTIAL_BYTES.
+BWD_LANES_PER_BLOCK = 1024
+PARTIAL_BYTES = 32 * 1024 * 1024
 
 
 def _check_inputs(table, idx):
@@ -29,8 +39,14 @@ def _check_inputs(table, idx):
         raise ValueError("table and idx must be contiguous")
 
 
+def _device_stream(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no pack-gather kernel for device {t.device}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def gather_rows_t_plain(table, idx):
-    """Plain torch version of the kernel."""
+    """Plain torch version of the forward kernel."""
     gather_rows_t_plain.launches += 1
     T = table.shape[0]
     ok = (idx >= 0) & (idx < T)
@@ -41,23 +57,90 @@ def gather_rows_t_plain(table, idx):
 gather_rows_t_plain.launches = 0
 
 
-def gather_rows_t(table, idx):
-    """``table[idx]`` transposed: f32[W, N], zero rows for ids outside
-    [0, T). Kernel for CUDA tensors, plain version for CPU tensors."""
-    _check_inputs(table, idx)
+def gather_rows_t_bwd_plain(idx, cot, n_rows: int):
+    """Plain torch version of the backward kernel: f32[T, W] zeros,
+    ``index_add_`` of ``cot.T`` over the in-range ids."""
+    gather_rows_t_bwd_plain.launches += 1
+    ok = (idx >= 0) & (idx < n_rows)
+    out = torch.zeros((n_rows, cot.shape[0]), dtype=torch.float32,
+                      device=cot.device)
+    return out.index_add_(0, idx[ok].long(), cot.T[ok])
+
+
+gather_rows_t_bwd_plain.launches = 0
+
+
+def _fwd(table, idx):
     if idx.device.type == "cpu":
         return gather_rows_t_plain(table, idx)
-    if idx.device.type != "cuda":
-        raise ValueError(f"no pack-gather kernel for device {idx.device}")
+    stream = _device_stream(idx)
     T, W = table.shape
     N = idx.shape[0]
     out = torch.empty((W, N), dtype=torch.float32, device=idx.device)
     err = native.load().pbr_packgather_fwd(
-        idx.data_ptr(), table.data_ptr(), N, T, W, out.data_ptr(),
-        torch.cuda.current_stream(idx.device).cuda_stream)
+        idx.data_ptr(), table.data_ptr(), N, T, W, out.data_ptr(), stream)
     native.check(err, "gather_rows_t")
     gather_rows_t.launches += 1
     return out
+
+
+def gather_rows_t_bwd(idx, cot, n_rows: int):
+    """d_table f32[T, W]: the columns of ``cot`` f32[W, N] summed per id
+    ``idx`` i32[N]; ids outside [0, T) are dropped. Kernel for CUDA
+    tensors, plain version for CPU tensors."""
+    if idx.dim() != 1 or cot.dim() != 2 or cot.shape[1] != idx.shape[0]:
+        raise ValueError(f"cot must be [W, N] and idx [N], got "
+                         f"{tuple(cot.shape)} and {tuple(idx.shape)}")
+    if cot.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"cot must be float32 and idx int32, got "
+                        f"{cot.dtype} and {idx.dtype}")
+    if cot.device != idx.device:
+        raise ValueError(f"cot on {cot.device}, idx on {idx.device}")
+    if not (cot.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("cot and idx must be contiguous")
+    if idx.device.type == "cpu":
+        return gather_rows_t_bwd_plain(idx, cot, n_rows)
+    stream = _device_stream(idx)
+    W, N = cot.shape
+    row_bytes = n_rows * W * 8
+    max_blocks = max(1, PARTIAL_BYTES // max(row_bytes, 1))
+    lanes = max(BWD_LANES_PER_BLOCK, -(-N // max_blocks))
+    n_blocks = -(-N // lanes)
+    partial = torch.empty(max(n_blocks * n_rows * W, 1), dtype=torch.float64,
+                          device=idx.device)
+    out = torch.empty((n_rows, W), dtype=torch.float32, device=idx.device)
+    err = native.load().pbr_packgather_bwd(
+        idx.data_ptr(), cot.data_ptr(), N, n_rows, W, lanes,
+        partial.data_ptr(), out.data_ptr(), stream)
+    native.check(err, "gather_rows_t_bwd")
+    gather_rows_t_bwd.launches += 1
+    return out
+
+
+gather_rows_t_bwd.launches = 0
+
+
+class _GatherRowsT(torch.autograd.Function):
+    """K2 forward, K3 backward; no gradient w.r.t. the ids."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return _fwd(table, idx)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (idx,) = ctx.saved_tensors
+        return gather_rows_t_bwd(idx, cot.contiguous(), ctx.n_rows), None
+
+
+def gather_rows_t(table, idx):
+    """``table[idx]`` transposed: f32[W, N], zero rows for ids outside
+    [0, T). Differentiable w.r.t. ``table``. Kernels for CUDA tensors,
+    plain versions for CPU tensors."""
+    _check_inputs(table, idx)
+    return _GatherRowsT.apply(table, idx)
 
 
 gather_rows_t.launches = 0

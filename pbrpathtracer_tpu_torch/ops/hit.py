@@ -7,6 +7,11 @@ a bounded number of times (``RenderConfig.opacity_attempts``). Draws are keyed
 The default intersector is the dense closest-hit kernel's wrapper, which
 launches the CUDA kernel for CUDA tensors and takes its plain version for CPU
 tensors.
+
+Queries are stop-gradient'd (``hit_vjp="recompute"``): the rays are
+detached and the query records no graph, so its outputs carry no gradient
+and the kernel never runs in a backward. Shading grafts the winner's
+derivatives back on (``ops/shade._winner_straight_through``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ def interpolate_uv(scene: Scene, tri_idx, u, v):
     return w0 * g.uv0[i] + u[:, None] * g.uv1[i] + v[:, None] * g.uv2[i]
 
 
+@torch.no_grad()
 def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
                 slot_base=rng.SLOT_OPACITY_BASE, intersect_fn=None,
                 alive=None):
@@ -52,6 +58,7 @@ def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
     if slot_base % 4 != 0:
         raise ValueError("opacity slot base must be group-aligned")
 
+    ro, rd = ro.detach(), rd.detach()
     N = ro.shape[0]
     t_lower = torch.zeros(N, dtype=torch.float32, device=ro.device)
 

@@ -7,15 +7,23 @@ reads one flag back from the device per segment.
 
 Progressive accumulation matches the reference's buffer semantics: float
 accumulation of per-pass radiance, display = floor(clamp(accum / samples, 0,
-1) * 255), no gamma. Everything runs under ``torch.inference_mode()`` on the
-scene's device; gradients are not ported yet.
+1) * 255), no gamma.
+
+A render records an autograd graph only when a scene or camera leaf
+requires grad (and grad mode is on); otherwise it runs under
+``torch.inference_mode()``. Under a graph each bounce segment is
+recomputed in the backward as ``cfg.remat_segments`` says (the JAX
+package's remat of the segment body, ``jax.checkpoint``); the keyed RNG
+draws the same numbers in the recompute with no state saved.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..scene.scene import Camera, Scene
 from . import rng
@@ -24,13 +32,17 @@ from .hit import closest_hit
 from .shade import WavefrontState, shade_segment
 
 
-def _require_no_grad(scene: Scene, camera: Camera):
+def _records_graph(scene: Scene, camera: Camera) -> bool:
     leaves = [getattr(c, f.name)
               for c in (scene.geom, scene.materials, scene.textures, camera)
               for f in dataclasses.fields(c)]
-    if any(x.requires_grad for x in leaves):
-        raise NotImplementedError(
-            "gradients through the renderer are not ported yet")
+    return torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
+
+
+def _grad_mode(scene: Scene, camera: Camera):
+    if _records_graph(scene, camera):
+        return contextlib.nullcontext()
+    return torch.inference_mode()
 
 
 def _shadow_trace(scene, cfg, seed, pixel, sample_idx, stream):
@@ -41,7 +53,74 @@ def _shadow_trace(scene, cfg, seed, pixel, sample_idx, stream):
     return trace
 
 
-@torch.inference_mode()
+class _ShadowTape:
+    """Shadow queries recorded on a segment's first run and replayed when
+    the checkpoint recomputes the segment, so no query runs in the
+    backward."""
+
+    def __init__(self, trace):
+        self.trace = trace
+        self.saved = []
+        self.pos = 0
+
+    def __call__(self, p, l, sh_alive=None):
+        if self.pos == len(self.saved):
+            self.saved.append(self.trace(p, l, sh_alive))
+        out = self.saved[self.pos]
+        self.pos += 1
+        return out
+
+
+def _segment(scene, cfg, state, seg, sample_idx, seed, remat):
+    """One bounce: hit query, then shading, recomputed in the backward as
+    ``remat`` says."""
+    stream = rng.bounce_stream(seg)
+    shadow = _shadow_trace(scene, cfg, seed, state.pixel, sample_idx, stream)
+
+    def query(st):
+        return closest_hit(scene, cfg, st.ro, st.rd, seed, st.pixel,
+                           sample_idx, stream, alive=st.alive)
+
+    def query_and_shade(st):
+        return shade_segment(scene, cfg, st, *query(st), seg, sample_idx,
+                             seed, shadow)
+
+    if remat == "all":
+        return checkpoint(query_and_shade, state, use_reentrant=False,
+                          preserve_rng_state=False)
+    hits = query(state)
+    if remat == "off":
+        return shade_segment(scene, cfg, state, *hits, seg, sample_idx, seed,
+                             shadow)
+    tape = _ShadowTape(shadow)
+
+    def shade(st, hits):
+        tape.pos = 0
+        return shade_segment(scene, cfg, st, *hits, seg, sample_idx, seed,
+                             tape)
+    return checkpoint(shade, state, hits, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):
+    device = scene.device
+    camera = camera.to(device)
+    if pixel_idx is None:
+        pixel_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                                 device=device)
+    seed = cfg.seed if seed is None else seed
+    remat = cfg.resolved_remat() if torch.is_grad_enabled() else "off"
+
+    ro, rd = generate_rays(camera, cfg.width, cfg.height, seed, sample_idx,
+                           pixel_idx)
+    state = WavefrontState.initial(ro, rd, pixel_idx)
+    for seg in range(cfg.resolved_max_segments()):
+        if cfg.skip_dead_segments and not bool(state.alive.any()):
+            break
+        state = _segment(scene, cfg, state, seg, sample_idx, seed, remat)
+    return state.radiance
+
+
 def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,
                   pixel_idx=None, seed=None):
     """Trace one sample per pixel. Returns radiance f32[N, 3].
@@ -50,50 +129,34 @@ def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,
     resumed renders draw fresh, seed-exact samples. ``seed`` overrides
     ``cfg.seed``.
     """
-    _require_no_grad(scene, camera)
-    device = scene.device
-    camera = camera.to(device)
-    if pixel_idx is None:
-        pixel_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
-                                 device=device)
-    seed = cfg.seed if seed is None else seed
-
-    ro, rd = generate_rays(camera, cfg.width, cfg.height, seed, sample_idx,
-                           pixel_idx)
-    state = WavefrontState.initial(ro, rd, pixel_idx)
-    for seg in range(cfg.resolved_max_segments()):
-        if cfg.skip_dead_segments and not bool(state.alive.any()):
-            break
-        stream = rng.bounce_stream(seg)
-        hit, idx, t, u, v = closest_hit(scene, cfg, state.ro, state.rd, seed,
-                                        state.pixel, sample_idx, stream,
-                                        alive=state.alive)
-        state = shade_segment(
-            scene, cfg, state, hit, idx, t, u, v, seg, sample_idx, seed,
-            _shadow_trace(scene, cfg, seed, state.pixel, sample_idx, stream))
-    return state.radiance
+    with _grad_mode(scene, camera):
+        return _render_sample(scene, camera, cfg, sample_idx, pixel_idx,
+                              seed)
 
 
-@torch.inference_mode()
 def render_accumulate(scene: Scene, camera: Camera, cfg, accum,
                       sample_start, num_samples: int, seed=None):
     """Add ``num_samples`` progressive passes onto ``accum`` (f32[N,3]) and
     return it; the caller tracks the sample counter."""
-    for k in range(num_samples):
-        accum = accum + render_sample(scene, camera, cfg, sample_start + k,
-                                      seed=seed)
+    with _grad_mode(scene, camera):
+        for k in range(num_samples):
+            accum = accum + render_sample(scene, camera, cfg,
+                                          sample_start + k, seed=seed)
     return accum
 
 
-@torch.inference_mode()
 def render(scene: Scene, camera: Camera, cfg, seed=None):
     """Render cfg.spp samples; returns the mean radiance f32[H, W, 3] on the
-    scene's device."""
-    accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
-                        device=scene.device)
-    accum = render_accumulate(scene, camera, cfg, accum, 0, cfg.spp,
-                              seed=seed)
-    return (accum / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    scene's device, differentiable w.r.t. every leaf that requires grad."""
+    with _grad_mode(scene, camera):
+        accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                            device=scene.device)
+        accum = render_accumulate(scene, camera, cfg, accum, 0, cfg.spp,
+                                  seed=seed)
+        img = (accum / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    # a forward-only render is an inference tensor, which autograd cannot
+    # save: hand back a normal one, so that it can be a loss's target
+    return img.clone() if img.is_inference() else img
 
 
 def tonemap_u8(accum, samples):

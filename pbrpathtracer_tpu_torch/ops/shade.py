@@ -21,9 +21,12 @@ Reference quirks reproduced on purpose:
     mixes a basis around r with a final axis along n;
   * Schlick's approximation uses (1-c)², not (1-c)⁵.
 
-The JAX package's recompute straight-through (``_graft``,
-``_winner_straight_through``) is the identity in a forward pass; it comes
-with the gradient port.
+Gradients (``hit_vjp="recompute"``, the JAX package's default): the hit
+queries are stop-gradient'd (``ops/hit.py``), and shading re-derives the
+winning triangle's (t, u, v) in closed form and grafts its derivatives onto
+the query values (``_winner_straight_through``). The forward values stay
+the query's own bit for bit; a render that records no graph skips the
+recompute, as XLA drops it from a forward-only JAX graph.
 """
 
 from __future__ import annotations
@@ -154,6 +157,39 @@ def direct_illumination(scene: Scene, p, n, diffuse, seed, pixel, sample_idx,
     return torch.where((facing & visible)[:, None], contrib, 0.0)
 
 
+class _Graft(torch.autograd.Function):
+    """Straight-through: the forward returns ``orig`` exactly; the backward
+    sends the cotangent to ``orig``, and to ``rec`` where ``ok``."""
+
+    @staticmethod
+    def forward(ctx, orig, rec, ok):
+        ctx.save_for_backward(ok)
+        return orig.view_as(orig)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (ok,) = ctx.saved_tensors
+        return cot, torch.where(ok, cot, 0.0), None
+
+
+def _winner_straight_through(ro, rd, v0, e1, e2, hit, t, bu, bv):
+    """Re-derive (t, u, v) for the winning triangle differentiably
+    (Möller–Trumbore with the safe-reciprocal guard) and graft the
+    derivatives onto the query's values. Misses and degenerate denominators
+    keep a zero derivative."""
+    h = cross(rd, e2)
+    a = dot(e1, h)
+    ok = hit & (torch.abs(a) >= EPS)
+    f = torch.where(ok, 1.0 / torch.where(ok, a, 1.0), 0.0)
+    s = ro - v0
+    q = cross(s, e1)
+    t_rec = f * dot(e2, q)
+    u_rec = f * dot(s, h)
+    v_rec = f * dot(rd, q)
+    return (_Graft.apply(t, t_rec, ok), _Graft.apply(bu, u_rec, ok),
+            _Graft.apply(bv, v_rec, ok))
+
+
 def shade_segment(scene: Scene, cfg, state: WavefrontState,
                   hit, tri_idx, t, bu, bv,
                   seg, sample_idx, seed, shadow_trace) -> WavefrontState:
@@ -180,8 +216,13 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
     (f_normal, f_n0, f_n1, f_n2, f_uv0, f_uv1, f_uv2, f_smooth,
      f_diffuse, f_specular, f_emissive, f_emiss_int, f_roughness,
      f_reflectiveness, f_transl, f_ior, f_mtype, f_texidx,
-     f_tangent, f_bitangent, _, _, _) = sp.gather_fields(
+     f_tangent, f_bitangent, f_v0, f_e1, f_e2) = sp.gather_fields(
          sp.build_tri_pack(scene), tri_idx, sp.TRI_FIELDS)
+
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (state.ro, rd, f_v0, f_e1, f_e2)):
+        t, bu, bv = _winner_straight_through(
+            state.ro, rd, f_v0, f_e1, f_e2, hit, t, bu, bv)
 
     p = state.ro + rd * t[:, None]
     w0 = (1.0 - bu - bv)[:, None]

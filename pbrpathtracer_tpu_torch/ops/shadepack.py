@@ -14,7 +14,14 @@ Integer fields (mat_type, tex_index, light tri id) ride as exact floats
 
 ``gather_fields`` fetches the rows with the pack-gather kernel
 (``kernels/packgather.py``) as one field-major [W, N] block and hands out
-per-field views of it.
+per-field views of it. Its backward is one concatenation of the field
+cotangents into the [W, N] block cotangent (``_SplitFields``, as the JAX
+package's ``_split_concat_vjp``): autograd's own reverse of k views would
+build a zero [W, N] block per field and add them.
+
+The pack builders are plain torch, so autograd carries the block's
+cotangent on through the material join ``m.diffuse[mid]`` to the
+``Materials`` leaves.
 """
 
 from __future__ import annotations
@@ -25,12 +32,41 @@ from ..kernels.packgather import gather_rows_t
 from ..utils.constants import TEX_OPACITY
 
 
+def _width(s) -> int:
+    return s.stop - s.start if isinstance(s, slice) else 1
+
+
+class _SplitFields(torch.autograd.Function):
+    """Views of a [W, N] block per field; the backward concatenates the
+    field cotangents (zeros where a field got none)."""
+
+    @staticmethod
+    def forward(ctx, rows, fields):
+        ctx.fields = fields
+        return tuple(rows[s].T if isinstance(s, slice) else rows[s]
+                     for s in fields)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        parts = [c.T if isinstance(s, slice) else c[None, :]
+                 for s, c in zip(ctx.fields, cots)]
+        return torch.cat(parts, dim=0), None
+
+
 def gather_fields(table, idx, fields) -> tuple:
     """Per-lane attributes ``split(table[idx], fields)``: a slice field comes
-    back as an [N, w] view, an int field as [N]."""
-    rows = gather_rows_t(table, idx)
-    return tuple(rows[s].T if isinstance(s, slice) else rows[s]
-                 for s in fields)
+    back as an [N, w] view, an int field as [N]. ``fields`` must be ordered,
+    disjoint and cover the table's columns (the backward concatenates)."""
+    fields = tuple(fields)
+    start = 0
+    for s in fields:
+        if (s.start if isinstance(s, slice) else s) != start:
+            raise ValueError("fields must be ordered, disjoint slices "
+                             "covering the table's columns")
+        start += _width(s)
+    if start != table.shape[1]:
+        raise ValueError(f"fields cover {start} of {table.shape[1]} columns")
+    return _SplitFields.apply(gather_rows_t(table, idx), fields)
 
 
 # ---- tri_pack column layout -------------------------------------------------

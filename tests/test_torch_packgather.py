@@ -1,7 +1,11 @@
-"""The plain version of the port's pack-gather kernel against the JAX Pallas
-kernel ``gather_rows_t`` in interpret mode, and ``gather_fields`` against the
-JAX shading fetch: exact equality, out-of-range ids included."""
+"""The plain versions of the port's pack-gather kernels against the JAX
+Pallas kernel ``gather_rows_t`` in interpret mode, and ``gather_fields``
+against the JAX shading fetch. Forward: exact equality, out-of-range ids
+included. Backward: against ``jax.grad`` at rtol 1e-6, atol 1e-5
+(tests/test_packgather.py's tolerance: each row sums its cotangents in
+float32, in another order than the TPU kernel's matmul)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +39,78 @@ def test_plain_equals_pallas_interpret(T, W, N, out_of_range):
     out = K.gather_rows_t(torch.tensor(table), torch.tensor(idx))
     assert out.shape == (W, N) and out.is_contiguous()
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("T,W,N", [(36, 55, 1000), (2, 13, 7), (9, 8, 129),
+                                   (256, 55, 300)])
+def test_backward_matches_pallas_interpret(T, W, N):
+    table, idx = _case(T + W + N, T, W, N, out_of_range=True)
+    cot = np.random.RandomState(N).randn(W, N).astype(np.float32)
+    ref = np.asarray(jax.grad(lambda t: jnp.sum(
+        j_gather(t, jnp.asarray(idx), True) * cot))(jnp.asarray(table)))
+    tab = torch.tensor(table, requires_grad=True)
+    (K.gather_rows_t(tab, torch.tensor(idx)) * torch.tensor(cot)).sum() \
+        .backward()
+    np.testing.assert_allclose(tab.grad.numpy(), ref, rtol=1e-6, atol=1e-5)
+    direct = K.gather_rows_t_bwd(torch.tensor(idx), torch.tensor(cot), T)
+    np.testing.assert_array_equal(direct.numpy(), tab.grad.numpy())
+
+
+def test_backward_takes_the_plain_version_on_cpu():
+    table, idx = _case(4, 36, 55, 64, out_of_range=True)
+    tab = torch.tensor(table, requires_grad=True)
+    kernel = K.gather_rows_t_bwd.launches
+    plain = K.gather_rows_t_bwd_plain.launches
+    K.gather_rows_t(tab, torch.tensor(idx)).sum().backward()
+    assert K.gather_rows_t_bwd.launches == kernel
+    assert K.gather_rows_t_bwd_plain.launches == plain + 1
+    ok = (idx >= 0) & (idx < 36)
+    counts = np.bincount(idx[ok], minlength=36).astype(np.float32)
+    np.testing.assert_array_equal(tab.grad.numpy(),
+                                  np.repeat(counts[:, None], 55, axis=1))
+
+
+@pytest.mark.parametrize("pack", ["tri", "light"])
+def test_gather_fields_backward_matches_jax(pack):
+    """The single-concatenate backward against the JAX gather_fields
+    gradient, over every field (integer fields included)."""
+    rs = np.random.RandomState(5)
+    fields = {"tri": jsp.TRI_FIELDS, "light": jsp.LIGHT_FIELDS}[pack]
+    W = {"tri": jsp.TRI_PACK_WIDTH, "light": jsp.LIGHT_PACK_WIDTH}[pack]
+    T, N = 36, 700
+    table, idx = _case(W, T, W, N, out_of_range=True)
+    cots = [rs.randn(N, s.stop - s.start) if isinstance(s, slice)
+            else rs.randn(N) for s in fields]
+    cots = [c.astype(np.float32) for c in cots]
+
+    def j_loss(t):
+        out = jsp.gather_fields(t, jnp.asarray(idx), fields)
+        return sum(jnp.sum(o * c) for o, c in zip(out, cots))
+
+    ref = np.asarray(jax.grad(j_loss)(jnp.asarray(table)))
+    tab = torch.tensor(table, requires_grad=True)
+    out = psp.gather_fields(tab, torch.tensor(idx), fields)
+    sum((o * torch.tensor(c)).sum() for o, c in zip(out, cots)).backward()
+    np.testing.assert_allclose(tab.grad.numpy(), ref, rtol=1e-6, atol=1e-5)
+
+
+def test_gather_fields_backward_fills_unused_fields_with_zeros():
+    table, idx = _case(6, 36, 55, 100)
+    tab = torch.tensor(table, requires_grad=True)
+    f = psp.gather_fields(tab, torch.tensor(idx), psp.TRI_FIELDS)
+    f[psp.TRI_FIELDS.index(psp.DIFFUSE)].sum().backward()
+    counts = np.bincount(idx, minlength=36).astype(np.float32)
+    expect = np.zeros((36, 55), np.float32)
+    expect[:, psp.DIFFUSE] = counts[:, None]
+    np.testing.assert_array_equal(tab.grad.numpy(), expect)
+
+
+def test_gather_fields_rejects_fields_that_do_not_cover_the_table():
+    table, idx = (torch.tensor(x) for x in _case(7, 36, 55, 10))
+    with pytest.raises(ValueError):
+        psp.gather_fields(table, idx, psp.TRI_FIELDS[:-1])
+    with pytest.raises(ValueError):
+        psp.gather_fields(table, idx, (slice(0, 3), slice(4, 55)))
 
 
 def test_any_table_height():
@@ -91,3 +167,10 @@ def test_wrapper_rejects_bad_inputs():
         K.gather_rows_t(table.T, idx)
     with pytest.raises(ValueError):
         K.gather_rows_t(table[0], idx)
+    cot = torch.zeros((55, 64))
+    with pytest.raises(TypeError):
+        K.gather_rows_t_bwd(idx.long(), cot, 36)
+    with pytest.raises(ValueError):
+        K.gather_rows_t_bwd(idx, cot[:, :10], 36)
+    with pytest.raises(ValueError):
+        K.gather_rows_t_bwd(idx, cot.T.contiguous().T, 36)

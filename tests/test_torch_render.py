@@ -11,7 +11,6 @@
   ``benchmarks.goldens.compare``.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -208,11 +207,13 @@ def test_dead_segment_skip_changes_nothing():
 
 
 def test_gradients_raise():
-    ps = pb.cornell_box()
-    ps = dataclasses.replace(ps, materials=dataclasses.replace(
-        ps.materials, diffuse=ps.materials.diffuse.clone().requires_grad_()))
-    with pytest.raises(NotImplementedError):
-        render(ps, Camera.make(**POSE), RenderConfig(width=4, height=4))
+    """Gradients are ported for hit_vjp="recompute" only (see
+    tests/test_torch_diff.py); the other modes raise."""
+    for mode in ("winner", "autodiff"):
+        with pytest.raises(NotImplementedError):
+            RenderConfig(width=4, height=4, hit_vjp=mode)
+    with pytest.raises(ValueError):
+        RenderConfig(remat_segments="some")
 
 
 def test_rung1_cornell_golden():
