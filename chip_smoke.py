@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's render and gradient paths once on one CUDA card.
+"""Drive the PyTorch port's render, gradient and large-scene paths once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,34 @@ Phases, one line each, any failure ends the run with a non-zero exit:
 11. texture grads -- textured Cornell, ``grad_render(textures=True)`` twice
                with deterministic algorithms off (reported) and on (must be
                bit-identical).
+12. big scenes -- ``mesh_scene`` at 50k, 200k and 1M triangles built on the
+               host with their BVHs (times printed).
+13. K4      -- the BVH closest-hit kernel against its plain torch version
+               (K1's tolerance): the 50k scene with the 262,144 flagship
+               primary rays of ``mesh_scene_camera`` and with random rays
+               (random t_lower, 20% dead), a flat plane under a flat quad
+               (no BVH of its own: the kernel's private one; down rays,
+               a t_lower re-trace, rays parallel to the planes), and the 1M
+               scene on 16,384 rays. Then K2 against its plain version
+               (bit-equal) at the 50k and 1M tri packs, on the 512^2
+               primary hit ids and on random ids with out-of-range ones.
+14. rung 3  -- BASELINE config 3 at spec on the 50k scene: the 512x512,
+               depth 3, 64 spp forward (finite, max > 0.05, timed); the 512^2
+               ``grad_render(materials=False, textures=True)`` (finite,
+               nonzero); the 512^2 material ``grad_render`` (finite, K3
+               launched at the 50k tri pack); the FD probe of the 3 largest
+               texel gradients at 64^2, depth 2 (rel < 1%); the textured
+               256^2 backward (the shape that faulted on the TPU, finite).
+15. goldens -- rung3_mesh50k and rung5_million (200k triangles) against
+               ``tests/goldens`` by ``benchmarks.goldens.compare``.
+16. 1M      -- ``million_tri_scene``, 512x512 depth 3 1 spp forward: finite,
+               timed, peak device memory.
+17. timing  -- K4 per query beside its plain version, the 50k render per spp
+               without and with compaction ("off"/"scan" and "sort"/"block",
+               in turns), K2 at the 50k and 1M tri packs and K3 at the 50k
+               tri pack, each beside its plain version.
+Every large-scene run (phases 14-16) is driven with the launch counters at 0
+and must launch K4, never K1 (``intersect_dense``) and no plain version.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}`` last.
@@ -66,6 +95,12 @@ N_RAYS = 262_144
 CAM_POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1.0),
                 up=(0.0, 1.0, 0.0), fovy=61.0)
 K1_TOL = 1e-5
+# BASELINE config 3 at spec (benchmarks/ladder.py's rung 3): 512^2, 64 spp;
+# K4's 1M-triangle case on a 128^2 image, its flat-plane case on 65,536 rays.
+RUNG3_SIZE = 512
+RUNG3_SPP = 64
+MILLION_RAYS = 16_384
+PLANE_RAYS = 65_536
 K3_RTOL, K3_ATOL = 1e-6, 1e-5
 
 
@@ -148,6 +183,33 @@ def render_mean_var(scene, camera, cfg):
             var.reshape(shape).cpu().numpy())
 
 
+def random_ids(rs, T, dev):
+    """N_RAYS random ids into a table of T rows, 1% of them -1 and 1% T + 3
+    (out of range)."""
+    import torch
+    idx = rs.randint(0, T, N_RAYS)
+    idx[rs.uniform(size=N_RAYS) < 0.01] = -1
+    idx[rs.uniform(size=N_RAYS) < 0.01] = T + 3
+    return torch.tensor(idx, dtype=torch.int32, device=dev)
+
+
+def compare_k2(name, table, idx):
+    """K2 against its plain version; must be bit-equal. Returns the max
+    |difference|."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.packgather import (
+        gather_rows_t, gather_rows_t_plain)
+    k = gather_rows_t(table, idx)
+    p = gather_rows_t_plain(table, idx)
+    torch.cuda.synchronize()
+    equal = torch.equal(k, p)
+    err = float((k - p).abs().max())
+    print(f"K2 {name}: T={table.shape[0]} W={table.shape[1]} "
+          f"N={idx.shape[0]} bit-equal={equal} max|d|={err:.3g}", flush=True)
+    require(equal, f"K2 {name}: not bit-equal")
+    return err
+
+
 def compare_k3(name, table, rs, dev):
     """K3 on N_RAYS lanes with out-of-range ids against f64; two calls
     bit-identical. Returns (max |kernel - f64|, max |plain - f64|)."""
@@ -155,10 +217,7 @@ def compare_k3(name, table, rs, dev):
     from pbrpathtracer_tpu_torch.kernels.packgather import (
         gather_rows_t_bwd, gather_rows_t_bwd_plain)
     T, W = table.shape
-    idx = rs.randint(0, T, N_RAYS)
-    idx[rs.uniform(size=N_RAYS) < 0.01] = -1
-    idx[rs.uniform(size=N_RAYS) < 0.01] = T + 3
-    idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
+    idx_t = random_ids(rs, T, dev)
     cot = torch.tensor(rs.normal(size=(W, N_RAYS)), dtype=torch.float32,
                        device=dev)
     ok = (idx_t >= 0) & (idx_t < T)
@@ -294,10 +353,384 @@ def texture_grad_phase(camera, dev):
             "algorithms")
 
 
+def all_counters():
+    """Every launch counter of the port's kernel wrappers and their plain
+    versions."""
+    from pbrpathtracer_tpu_torch.kernels import intersect as KI
+    from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
+    from pbrpathtracer_tpu_torch.kernels import packgather as KP
+    return (KI.intersect_dense, KI.intersect_dense_plain, KL.intersect_list,
+            KL.intersect_list_plain, KP.gather_rows_t, KP.gather_rows_t_plain,
+            KP.gather_rows_t_bwd, KP.gather_rows_t_bwd_plain)
+
+
+def large_run(what, fn):
+    """Run ``fn`` with every launch counter at 0; it must launch K4, never
+    K1 and no plain version. Returns (fn's result, counts)."""
+    import torch
+    for f in all_counters():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in all_counters()}
+    print(f"  {what} launches: {counts}", flush=True)
+    require(counts["intersect_list"] > 0, f"{what}: K4 was not launched")
+    require(counts["intersect_dense"] == 0,
+            f"{what}: the dense kernel ran on a scene over 2048 triangles")
+    require(all(v == 0 for k, v in counts.items() if k.endswith("_plain")),
+            f"{what}: a CUDA tensor reached a plain version")
+    return out, counts
+
+
+def compare_k4(name, scene, ro, rd, t_lower, alive):
+    """K4 against its plain version at K1's tolerance; returns the max
+    |dt, du, dv| where the winners agree."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.intersect_list import (
+        intersect_list, intersect_list_plain)
+    accel = scene.accel
+    kh, ki, kt, ku, kv = intersect_list(scene.geom, ro, rd, t_lower, alive,
+                                        accel=accel)
+    ph, pi, pt, pu, pv = intersect_list_plain(
+        scene.geom, ro, rd, t_lower, alive,
+        None if accel is None else accel.perm)
+    torch.cuda.synchronize()
+    mism = (kh != ph) | (ki != pi)
+    n_mism = int(mism.sum())
+    agree = ~mism
+    err = max(float((a - b)[agree].abs().max()) if bool(agree.any())
+              else 0.0 for a, b in ((kt, pt), (ku, pu), (kv, pv)))
+    dead_ok = bool((~kh[~alive]).all() and (ki[~alive] == 0).all()
+                   and (kt[~alive] == 0).all())
+    print(f"K4 {name}: T={scene.num_triangles} lanes={ro.shape[0]} "
+          f"hits={int(kh.sum())} hit/idx mismatches={n_mism} "
+          f"max|dt,du,dv|={err:.3g} dead-lanes-clean={dead_ok}", flush=True)
+    require(n_mism <= K1_TOL * ro.shape[0], f"K4 {name}: {n_mism} mismatches")
+    require(err <= K1_TOL, f"K4 {name}: max error {err}")
+    require(dead_ok, f"K4 {name}: dead lanes not a clean miss")
+    return err, (kh, ki, kt)
+
+
+def flat_plane_scene(n_side=37, quad=True):
+    """A tessellated plane at y = 0, with ``quad`` a quad at y = 1 above it,
+    all exactly flat, without a BVH of its own (tests/test_pallas_list.py's
+    scene)."""
+    import numpy as np
+    from pbrpathtracer_tpu_torch.scene.scene import (
+        MaterialSpec, finalize_scene, pack_geometry, pack_materials)
+    xs = np.linspace(-4.0, 4.0, n_side + 1, dtype=np.float32)
+    v0, v1, v2 = [], [], []
+    for i in range(n_side):
+        for k in range(n_side):
+            a, b = (xs[i], 0, xs[k]), (xs[i + 1], 0, xs[k])
+            c, d = (xs[i + 1], 0, xs[k + 1]), (xs[i], 0, xs[k + 1])
+            v0 += [a, a]
+            v1 += [b, c]
+            v2 += [c, d]
+    if quad:
+        v0 += [(-4, 1, -4), (-4, 1, -4)]
+        v1 += [(4, 1, -4), (4, 1, 4)]
+        v2 += [(4, 1, 4), (-4, 1, 4)]
+    tris = {k: np.asarray(x, np.float32)
+            for k, x in (("v0", v0), ("v1", v1), ("v2", v2))}
+    return finalize_scene(pack_geometry(tris),
+                          pack_materials([MaterialSpec()]), accel="none")
+
+
+def scene_rays(rs, n, device):
+    """Rays over the mesh_scene terrain: random origins above it, random
+    directions, 30% with a random t_lower, 20% dead."""
+    import numpy as np
+    import torch
+    ro = rs.uniform([-7, -1, 0], [7, 3, 16], (n, 3))
+    d = rs.normal(size=(n, 3))
+    rd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    t_lower = np.where(rs.uniform(size=n) < 0.3, rs.uniform(0, 2, n), 0.0)
+    alive = rs.uniform(size=n) < 0.8
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    return (f32(ro), f32(rd), f32(t_lower),
+            torch.tensor(alive, dtype=torch.bool, device=device))
+
+
+def k4_phase(big, million, dev, rs):
+    """Phase 13; returns (max error, the primary rays and their hits)."""
+    import numpy as np
+    import torch
+    from pbrpathtracer_tpu_torch.ops.camera import generate_rays
+    from pbrpathtracer_tpu_torch.scene.big_scenes import mesh_scene_camera
+    cam = mesh_scene_camera().to(dev)
+    ro, rd = generate_rays(cam, RUNG3_SIZE, RUNG3_SIZE, 0, 0)
+    n = ro.shape[0]
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    err, (hit, idx, _) = compare_k4("50k/primary", big, ro, rd, zeros, ones)
+    require(float(hit.float().mean()) > 0.3, "K4 50k/primary: too few hits")
+    err = max(err, compare_k4("50k/random", big,
+                              *scene_rays(rs, n, dev))[0])
+
+    plane = flat_plane_scene().to(dev)
+    n = PLANE_RAYS
+    pro = np.stack([rs.uniform(-3, 3, n), np.full(n, 3.0),
+                    rs.uniform(-3, 3, n)], axis=1)
+    prd = np.tile([[0.0, -1.0, 0.0]], (n, 1))
+    pro[1::2, 1] = 1.0               # origins on the quad's plane
+    prd[1::4] = [0.6, 0.0, 0.8]      # parallel to both planes
+    f32 = dict(dtype=torch.float32, device=dev)
+    pro, prd = torch.tensor(pro, **f32), torch.tensor(prd, **f32)
+    palive = torch.ones(n, dtype=torch.bool, device=dev)
+    perr, (ph, _, pt) = compare_k4("flat/first", plane, pro, prd,
+                                   torch.zeros(n, **f32), palive)
+    down = torch.arange(n, device=dev) % 2 == 0
+    require(bool(ph[down].all()) and bool(
+        ((pt[down] - 2.0).abs() < 1e-4).all()), "K4 flat: quad not hit")
+    perr2, (ph2, _, pt2) = compare_k4("flat/re-trace", plane, pro, prd, pt,
+                                      palive)
+    require(bool(((pt2[down] - 3.0).abs() < 1e-4).all()),
+            "K4 flat: the re-trace missed the plane")
+    err = max(err, perr, perr2)
+
+    err = max(err, compare_k4("1M/random", million,
+                              *scene_rays(rs, MILLION_RAYS, dev))[0])
+    side = int(round(MILLION_RAYS ** 0.5))
+    mro, mrd = generate_rays(cam, side, side, 0, 0)
+    m = side * side
+    err = max(err, compare_k4("1M/primary", million, mro, mrd,
+                              torch.zeros(m, **f32),
+                              torch.ones(m, dtype=torch.bool, device=dev))[0])
+    return err, ro, rd, zeros, ones, idx
+
+
+def rung3_phase(big, dev):
+    """Phase 14: BASELINE config 3 at spec. Returns (K4 launches of the
+    64 spp forward, its seconds)."""
+    import numpy as np
+    import torch
+    from pbrpathtracer_tpu_torch import (RenderConfig, get_params,
+                                         grad_render, l2_image_loss, render)
+    from pbrpathtracer_tpu_torch.diff.loss import finite_difference_grad
+    from pbrpathtracer_tpu_torch.scene.big_scenes import mesh_scene_camera
+    cam = mesh_scene_camera().to(dev)
+    size, spp = RUNG3_SIZE, RUNG3_SPP
+    cfg = RenderConfig(width=size, height=size, max_depth=3, spp=spp)
+    t0 = time.time()
+    img, counts = large_run(f"rung 3 forward {size}x{size} {spp} spp",
+                            lambda: render(big, cam, cfg))
+    fwd_s = time.time() - t0
+    finite = bool(torch.isfinite(img).all())
+    peak = float(img.max())
+    print(f"rung 3 forward: {size}x{size} depth 3 spp {spp} in {fwd_s:.3f} s "
+          f"({fwd_s / spp * 1e3:.3f} ms per spp) finite={finite} "
+          f"max={peak:.4f} mean={float(img.mean()):.6f}", flush=True)
+    require(finite and peak > 0.05, "rung 3 image is wrong")
+
+    zero = torch.zeros((size, size, 3), device=dev)
+    gcfg = cfg.replace(spp=1)
+    t0 = time.time()
+    (loss, g), _ = large_run("rung 3 texture grad", lambda: grad_render(
+        big, cam, gcfg, zero, materials=False, textures=True))
+    tex_s = time.time() - t0
+    gt = g["tex.data"]
+    ok = bool(torch.isfinite(gt).all()) and float(gt.abs().max()) > 0
+    tex_ms = cuda_ms(lambda: grad_render(big, cam, gcfg, zero, materials=False,
+                                         textures=True), 2)
+    tex_mb = peak_mb(lambda: grad_render(big, cam, gcfg, zero,
+                                         materials=False, textures=True))
+    print(f"rung 3 texture grad: {size}x{size} depth 3 spp 1 in {tex_s:.3f} s "
+          f"(first call), then {tex_ms:.3f} ms, peak {tex_mb:.0f} MB; "
+          f"loss={float(loss):.6f} finite and nonzero={ok} "
+          f"|d tex|={float(gt.norm()):.6g}", flush=True)
+    require(ok, "rung 3 texture gradients not finite or all zero")
+
+    t0 = time.time()
+    (loss, g), mcounts = large_run("rung 3 material grad",
+                                   lambda: grad_render(big, cam, gcfg, zero))
+    mat_s = time.time() - t0
+    finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+    mat_ms = cuda_ms(lambda: grad_render(big, cam, gcfg, zero), 2)
+    mat_mb = peak_mb(lambda: grad_render(big, cam, gcfg, zero))
+    print(f"rung 3 material grad: {size}x{size} depth 3 spp 1 in {mat_s:.3f} s "
+          f"(first call), then {mat_ms:.3f} ms, peak {mat_mb:.0f} MB; "
+          f"loss={float(loss):.6f} finite={finite} "
+          f"|d diffuse|={float(g['mat.diffuse'].norm()):.6g}", flush=True)
+    require(finite, "rung 3 material gradients not finite")
+    require(mcounts["gather_rows_t_bwd"] > 0,
+            "rung 3 material grad: K3 was not launched")
+
+    fcfg = RenderConfig(width=64, height=64, max_depth=2, spp=1, seed=5)
+    ftarget = torch.zeros((64, 64, 3), device=dev)
+    params = get_params(big, cam, materials=False, textures=True)
+    ad = grad_render(big, cam, fcfg, ftarget, materials=False,
+                     textures=True)[1]["tex.data"].reshape(-1).cpu().numpy()
+    top = np.argsort(np.abs(ad))[-3:].tolist()
+    fd = finite_difference_grad(
+        lambda p: l2_image_loss(p, big, cam, fcfg, ftarget), params,
+        "tex.data", eps=5e-3, indices=top).reshape(-1)
+    for i in top:
+        a, f = float(ad[i]), float(fd[i])
+        rel = abs(a - f) / max(abs(f), 1e-12)
+        print(f"rung 3 FD probe texel {i}: AD={a:.6g} FD={f:.6g} "
+              f"rel={rel:.3%}", flush=True)
+        require(a != 0.0 and rel < 0.01, f"texel {i}: AD {a} vs FD {f}")
+
+    fsize = size // 2
+    fault = RenderConfig(width=fsize, height=fsize, max_depth=3, spp=1)
+    (loss, g), _ = large_run("textured backward", lambda: grad_render(
+        big, cam, fault, torch.zeros((fsize, fsize, 3), device=dev),
+        materials=False, textures=True))
+    finite = bool(torch.isfinite(g["tex.data"]).all()) and bool(
+        torch.isfinite(loss))
+    print(f"textured 50k backward at {fsize}x{fsize} (the TPU faulted at "
+          f"256x256): "
+          f"loss={float(loss):.6f} finite={finite}", flush=True)
+    require(finite, "the 256x256 textured backward is not finite")
+    return counts["intersect_list"], fwd_s
+
+
+def large_scene_phases(dev, rs, smi_line):
+    """Phases 12-17 at BASELINE config 3's spec. Returns K4's numbers for
+    the kernels line and the max K2 and K3 errors at the 50k and 1M tri
+    packs."""
+    import numpy as np
+    import torch
+    from benchmarks.goldens import GOLDEN_DIR, compare
+    from pbrpathtracer_tpu_torch import RenderConfig, render
+    from pbrpathtracer_tpu_torch.kernels.packgather import (
+        gather_rows_t, gather_rows_t_bwd, gather_rows_t_bwd_plain,
+        gather_rows_t_plain)
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    from pbrpathtracer_tpu_torch.ops.camera import generate_rays
+    # ---- 12. big scenes ----
+    from pbrpathtracer_tpu_torch.kernels.intersect_list import (
+        intersect_list, intersect_list_plain)
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (
+        mesh_scene, mesh_scene_camera, million_tri_scene)
+    scenes = {}
+    for name, make in (("50k", lambda: mesh_scene(50_000)),
+                       ("200k", lambda: mesh_scene(200_000, accel="always")),
+                       ("1M", million_tri_scene)):
+        t0 = time.time()
+        sc = make()
+        host_s = time.time() - t0
+        scenes[name] = sc.to(dev)
+        print(f"scene {name}: {sc.num_triangles} triangles, "
+              f"{sc.accel.num_nodes} BVH nodes, built on the host in "
+              f"{host_s:.2f} s", flush=True)
+    big, million = scenes["50k"], scenes["1M"]
+    mcam = mesh_scene_camera().to(dev)
+
+    # ---- 13. K4 vs plain, then K2 vs plain at the 50k and 1M tri packs
+    # on the 512^2 primary hit ids and on random ids ----
+    k4_err, mro, mrd, mzeros, mones, midx = k4_phase(big, million, dev, rs)
+    pack50k = sp.build_tri_pack(big)
+    pack1m = sp.build_tri_pack(million)
+    idx1m = intersect_list(million.geom, mro, mrd, mzeros, mones,
+                           accel=million.accel)[1]
+    k2_err = 0.0
+    for pname, table, prim in (("50k tri pack", pack50k, midx),
+                               ("1M tri pack", pack1m, idx1m)):
+        k2_err = max(k2_err,
+                     compare_k2(f"{pname}/primary", table, prim),
+                     compare_k2(f"{pname}/random", table,
+                                random_ids(rs, table.shape[0], dev)))
+
+    # ---- 14. rung 3 at spec ----
+    k4_launches, rung3_s = rung3_phase(big, dev)
+
+    # ---- 15. goldens of the large scenes ----
+    for name, sc, kw in (
+            ("rung3_mesh50k", big,
+             dict(width=128, height=128, max_depth=3, spp=16)),
+            ("rung5_million", scenes.pop("200k"),
+             dict(width=128, height=128, max_depth=3, spp=8))):
+        (mean, var), _ = large_run(f"golden {name}", lambda: render_mean_var(
+            sc, mcam, RenderConfig(**kw)))
+        rep = compare(mean, var, np.load(os.path.join(GOLDEN_DIR,
+                                                      f"{name}.npz")))
+        print(f"golden {name}: {json.dumps(rep)}", flush=True)
+        require(rep["ok"], f"golden {name} failed")
+    del sc
+
+    # ---- 16. 1M forward ----
+    size = RUNG3_SIZE
+    mcfg = RenderConfig(width=size, height=size, max_depth=3, spp=1)
+    torch.cuda.synchronize()
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img, _ = large_run("1M forward", lambda: render(million, mcam, mcfg))
+    first_s = time.time() - t0
+    peak_1m = torch.cuda.max_memory_allocated() / 2 ** 20
+    finite = bool(torch.isfinite(img).all())
+    m_ms = cuda_ms(lambda: render(million, mcam, mcfg), 2)
+    print(f"1M forward: {million.num_triangles} triangles, {size}x{size} "
+          f"depth 3 "
+          f"spp 1: first call {first_s:.3f} s, then {m_ms:.3f} ms; "
+          f"finite={finite} max={float(img.max()):.4f}; peak {peak_1m:.0f} "
+          f"MB ({peak_1m - held_mb:.0f} MB above the {held_mb:.0f} MB held "
+          f"before)", flush=True)
+    require(finite and float(img.max()) > 0.05, "1M image is wrong")
+
+    # ---- 17. timing ----
+    k4_ms = cuda_ms(lambda: intersect_list(big.geom, mro, mrd, mzeros, mones,
+                                           accel=big.accel), 20)
+    k4_plain_ms = cuda_ms(lambda: intersect_list_plain(
+        big.geom, mro, mrd, mzeros, mones, big.accel.perm), 1)
+    k4_ms_2 = cuda_ms(lambda: intersect_list(big.geom, mro, mrd, mzeros,
+                                             mones, accel=big.accel), 20)
+    side = int(round(MILLION_RAYS ** 0.5))
+    sro, srd = generate_rays(mcam, side, side, 0, 0)
+    m = side * side
+    m4_ms = cuda_ms(lambda: intersect_list(million.geom, sro, srd,
+                                           mzeros[:m], mones[:m],
+                                           accel=million.accel), 20)
+    print(f"timing K4 ({smi_line}): 50k scene, {mro.shape[0]} primary rays: "
+          f"{k4_ms:.4f} / {k4_ms_2:.4f} ms vs plain {k4_plain_ms:.3f} ms | "
+          f"1M scene, {m} primary rays ({side}x{side}): {m4_ms:.4f} ms",
+          flush=True)
+    per_spp = {}
+    for mode, order in (("off", "scan"), ("sort", "block"), ("sort", "block"),
+                        ("off", "scan"), ("gather", "scan")):
+        c = mcfg.replace(compact_wavefront=mode, pixel_order=order)
+        per_spp.setdefault(f"{mode}/{order}", []).append(
+            cuda_ms(lambda: render(big, mcam, c), 3))
+    print(f"timing 50k render {size}x{size} depth 3, ms per spp "
+          f"({smi_line}): "
+          + " | ".join(f"{k}: {', '.join(f'{x:.3f}' for x in v)}"
+                       for k, v in per_spp.items())
+          + f" | {RUNG3_SPP}-spp run {rung3_s / RUNG3_SPP * 1e3:.3f}",
+          flush=True)
+    k2_ms = {}
+    for pname, table, prim in (("50k", pack50k, midx), ("1M", pack1m, idx1m)):
+        k2_ms[pname] = (cuda_ms(lambda: gather_rows_t(table, prim), 20),
+                        cuda_ms(lambda: gather_rows_t_plain(table, prim), 20),
+                        cuda_ms(lambda: gather_rows_t(table, prim), 20))
+    print(f"timing K2 ({smi_line}), 512^2 primary hit ids: "
+          + " | ".join(f"{p} tri pack: {k:.4f} / {k2:.4f} ms vs plain "
+                       f"{pl:.4f} ms" for p, (k, pl, k2) in k2_ms.items()),
+          flush=True)
+    del pack1m, idx1m
+    k3_err = compare_k3("50k tri pack", pack50k, rs, dev)
+    cot50k = torch.tensor(rs.normal(size=(pack50k.shape[1], midx.shape[0])),
+                          dtype=torch.float32, device=dev)
+    T50k = pack50k.shape[0]
+    k3_50k_ms = cuda_ms(lambda: gather_rows_t_bwd(midx, cot50k, T50k), 5)
+    k3_50k_plain_ms = cuda_ms(lambda: gather_rows_t_bwd_plain(
+        midx, cot50k, T50k), 5)
+    k3_50k_ms_2 = cuda_ms(lambda: gather_rows_t_bwd(midx, cot50k, T50k), 5)
+    print(f"timing K3 ({smi_line}): 50k tri pack {T50k}x{pack50k.shape[1]}, "
+          f"primary hit ids: {k3_50k_ms:.4f} / {k3_50k_ms_2:.4f} ms vs "
+          f"plain {k3_50k_plain_ms:.4f} ms", flush=True)
+    return {"launches": k4_launches, "err": k4_err, "ms": k4_ms,
+            "plain_ms": k4_plain_ms, "k2_err": k2_err, "k3_err": k3_err}
+
+
 def main():
     import numpy as np
     import torch
 
+    t_start = time.time()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs the "
@@ -354,26 +787,12 @@ def main():
     for pname, table in (("cornell tri pack", sp.build_tri_pack(cornell)),
                          ("spheres tri pack", sp.build_tri_pack(spheres)),
                          ("light pack", sp.build_light_pack(cornell))):
-        T = table.shape[0]
-        idx = rs.randint(0, T, N_RAYS)
-        idx[rs.uniform(size=N_RAYS) < 0.01] = -1
-        idx[rs.uniform(size=N_RAYS) < 0.01] = T + 3
-        idx_t = torch.tensor(idx, dtype=torch.int32, device=dev)
-        k = gather_rows_t(table, idx_t)
-        p = gather_rows_t_plain(table, idx_t)
-        torch.cuda.synchronize()
-        equal = torch.equal(k, p)
-        err = float((k - p).abs().max())
-        k2_err = max(k2_err, err)
-        print(f"K2 {pname}: T={T} W={table.shape[1]} N={N_RAYS} "
-              f"bit-equal={equal} max|d|={err:.3g}", flush=True)
-        require(equal, f"K2 {pname}: not bit-equal")
+        k2_err = max(k2_err, compare_k2(
+            pname, table, random_ids(rs, table.shape[0], dev)))
 
     # ---- 5. flagship ----
     cfg = RenderConfig(width=512, height=512, max_depth=4, spp=1, seed=0)
-    counters = (intersect_dense, intersect_dense_plain, gather_rows_t,
-                gather_rows_t_plain, gather_rows_t_bwd,
-                gather_rows_t_bwd_plain)
+    counters = all_counters()
     for fn in counters:
         fn.launches = 0
     img = render(cornell, camera, cfg)
@@ -490,6 +909,13 @@ def main():
     fit_phase(cornell, camera)
     texture_grad_phase(camera, dev)
 
+    # ---- 12-17. the large-scene path ----
+    k4 = large_scene_phases(dev, rs, smi_line)
+    k2_err = max(k2_err, k4["k2_err"])
+    k3_err = max(k3_err, k4["k3_err"])
+    print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
+          flush=True)
+
     print(json.dumps({"kernels": [
         {"name": "intersect_dense", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/intersect.cu",
@@ -506,6 +932,11 @@ def main():
          "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:111",
          "launches": bwd_launches["gather_rows_t_bwd"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "intersect_list", "route": "cuda",
+         "source": "pbrpathtracer_tpu_torch/csrc/bvh_intersect.cu",
+         "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas_list.py:357",
+         "launches": k4["launches"], "max_abs_err": k4["err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

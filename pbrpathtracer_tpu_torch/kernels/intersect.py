@@ -9,8 +9,9 @@ lane is a clean miss (hit False, idx = t = u = v = 0); ties go to the lowest
 triangle id (in ``perm`` order when a permutation is given).
 
 Tensors on the CPU take the plain version; CUDA tensors launch the kernel.
-Scenes of more than ``MAX_DENSE_CHUNKS`` chunks (2048 triangles) need the
-candidate-list kernel, which is not ported yet.
+The wrapper refuses scenes of more than ``MAX_DENSE_CHUNKS`` chunks (2048
+triangles): those take the BVH kernel (``kernels/intersect_list.py``), as the
+JAX wrapper routes them to its candidate-list kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +35,13 @@ def _chunking(n_tris: int):
     return chunk, (n_tris + chunk - 1) // chunk
 
 
-def _check_inputs(geom, ro, rd, t_lower, alive):
+def dense_chunks(n_tris: int) -> int:
+    """Chunks of the dense route; more than MAX_DENSE_CHUNKS take K4."""
+    return _chunking(n_tris)[1]
+
+
+def check_query(geom, ro, rd, t_lower, alive):
+    """Shapes, types, devices and layout of a closest-hit query."""
     N = ro.shape[0]
     if ro.shape != (N, 3) or rd.shape != (N, 3):
         raise ValueError(f"ro/rd must be [N, 3], got {tuple(ro.shape)} "
@@ -54,12 +61,6 @@ def _check_inputs(geom, ro, rd, t_lower, alive):
             raise ValueError(f"{name} is on {x.device}, rays on {ro.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _, n_chunks = _chunking(geom.num_triangles)
-    if n_chunks > MAX_DENSE_CHUNKS:
-        raise NotImplementedError(
-            f"{geom.num_triangles} triangles: scenes over "
-            f"{MAX_DENSE_CHUNKS * MAX_CHUNK} triangles need the "
-            "candidate-list kernel, which is not ported yet")
 
 
 def _permuted(geom: Geometry, perm):
@@ -111,7 +112,12 @@ def intersect_dense(geom: Geometry, ro, rd, t_lower=None, alive=None,
         t_lower = torch.zeros(N, dtype=torch.float32, device=ro.device)
     if alive is None:
         alive = torch.ones(N, dtype=torch.bool, device=ro.device)
-    _check_inputs(geom, ro, rd, t_lower, alive)
+    check_query(geom, ro, rd, t_lower, alive)
+    if dense_chunks(geom.num_triangles) > MAX_DENSE_CHUNKS:
+        raise NotImplementedError(
+            f"{geom.num_triangles} triangles: the dense kernel takes at most "
+            f"{MAX_DENSE_CHUNKS * MAX_CHUNK}; larger scenes take "
+            "kernels.intersect_list.intersect_list")
     if ro.device.type == "cpu":
         return intersect_dense_plain(geom, ro, rd, t_lower, alive, perm)
     if ro.device.type != "cuda":

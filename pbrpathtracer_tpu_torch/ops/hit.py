@@ -4,9 +4,12 @@ texture, and on rejection re-trace past it with an exclusive lower bound on t,
 a bounded number of times (``RenderConfig.opacity_attempts``). Draws are keyed
 (pixel, sample, stream, slot_base + attempt).
 
-The default intersector is the dense closest-hit kernel's wrapper, which
-launches the CUDA kernel for CUDA tensors and takes its plain version for CPU
-tensors.
+The default intersector routes as the JAX wrapper ``intersect_pallas`` does:
+scenes of at most four 512-triangle chunks (2048 triangles) take the dense
+kernel (K1), larger ones the BVH kernel (K4); both order the triangles, and
+break exact-t ties, by the scene's BVH when it has one. Each wrapper
+launches its CUDA kernel for CUDA tensors and takes its plain version for
+CPU tensors.
 
 Queries are stop-gradient'd (``hit_vjp="recompute"``): the rays are
 detached and the query records no graph, so its outputs carry no gradient
@@ -18,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.intersect import intersect_dense
+from ..kernels.intersect import MAX_DENSE_CHUNKS, dense_chunks, intersect_dense
+from ..kernels.intersect_list import intersect_list
 from ..scene.scene import Scene
 from ..utils.constants import NO_TEXTURE
 from . import rng
@@ -28,9 +32,13 @@ from .texture import sample_texture
 
 def default_intersector(scene: Scene, ro, rd, t_lower, alive=None):
     # Rays built from gather_fields' field views inherit their [W, N]
-    # strides; the kernel reads [N, 3] rows.
-    return intersect_dense(scene.geom, ro.contiguous(), rd.contiguous(),
-                           t_lower, alive)
+    # strides; the kernels read [N, 3] rows.
+    ro, rd = ro.contiguous(), rd.contiguous()
+    if dense_chunks(scene.num_triangles) > MAX_DENSE_CHUNKS:
+        return intersect_list(scene.geom, ro, rd, t_lower, alive,
+                              accel=scene.accel)
+    perm = None if scene.accel is None else scene.accel.perm
+    return intersect_dense(scene.geom, ro, rd, t_lower, alive, perm=perm)
 
 
 def interpolate_uv(scene: Scene, tri_idx, u, v):

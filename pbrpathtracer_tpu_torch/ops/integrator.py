@@ -1,6 +1,13 @@
 """Wavefront integrator, as ``pbrpathtracer_tpu.ops.integrator``: every
 (pixel, sample) lane runs closest hit → masked shading → next ray, one bounce
-segment at a time, in scanline pixel order and without lane compaction.
+segment at a time.
+
+Lane order: the primary rays go in scanline or 64x8-block pixel order
+(``cfg.resolved_pixel_order``), and each live segment may first compact the
+wavefront (``cfg.resolved_compact``; ops/compaction.py), by the coherence
+key for scenes over ``cfg.bvh_threshold`` triangles. Both permutations are
+undone at the end; a reordered render equals the scanline one bit for bit
+per pixel.
 
 The loop stops once every lane is dead (``skip_dead_segments``); that test
 reads one flag back from the device per segment.
@@ -21,15 +28,31 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..scene.scene import Camera, Scene
 from . import rng
 from .camera import generate_rays
+from .compaction import (coherence_key, compact_gather, compact_sort,
+                         scatter_to_slots)
 from .hit import closest_hit
 from .shade import WavefrontState, shade_segment
+
+
+@functools.lru_cache(maxsize=32)
+def block_pixel_order(width: int, height: int, bw: int = 64, bh: int = 8):
+    """Block-major pixel permutation (i32 numpy array): consecutive lanes
+    cover bw x bh image rectangles instead of scanlines; ragged edge blocks
+    give shorter runs."""
+    idx = np.arange(width * height, dtype=np.int32).reshape(height, width)
+    blocks = [idx[y0:y0 + bh, x0:x0 + bw].ravel()
+              for y0 in range(0, height, bh)
+              for x0 in range(0, width, bw)]
+    return np.concatenate(blocks)
 
 
 def _records_graph(scene: Scene, camera: Camera) -> bool:
@@ -102,10 +125,27 @@ def _segment(scene, cfg, state, seg, sample_idx, seed, remat):
                       preserve_rng_state=False)
 
 
+def _compactor(scene, cfg):
+    """fn(state, slot) -> (state, slot) for cfg.resolved_compact, or None."""
+    mode = cfg.resolved_compact()
+    if mode == "off":
+        return None
+    base = compact_sort if mode == "sort" else compact_gather
+    if scene.num_triangles > cfg.bvh_threshold:
+        return lambda st, sl: base(st, sl, key=coherence_key(st, scene))
+    return base
+
+
 def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):
     device = scene.device
     camera = camera.to(device)
-    if pixel_idx is None:
+    blocked = pixel_idx is None and cfg.resolved_pixel_order() == "block"
+    if blocked:
+        # keyed by the pixel value, so only lane positions change; undone
+        # by the scatter at the end
+        pixel_idx = torch.from_numpy(
+            block_pixel_order(cfg.width, cfg.height)).to(device)
+    elif pixel_idx is None:
         pixel_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
                                  device=device)
     seed = cfg.seed if seed is None else seed
@@ -114,11 +154,20 @@ def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):
     ro, rd = generate_rays(camera, cfg.width, cfg.height, seed, sample_idx,
                            pixel_idx)
     state = WavefrontState.initial(ro, rd, pixel_idx)
+    compact = _compactor(scene, cfg)
+    slot = torch.arange(ro.shape[0], dtype=torch.int32, device=device)
     for seg in range(cfg.resolved_max_segments()):
         if cfg.skip_dead_segments and not bool(state.alive.any()):
             break
+        if compact is not None:
+            state, slot = compact(state, slot)
         state = _segment(scene, cfg, state, seg, sample_idx, seed, remat)
-    return state.radiance
+    radiance = state.radiance
+    if compact is not None:
+        radiance = scatter_to_slots(radiance, slot)
+    if blocked:
+        radiance = scatter_to_slots(radiance, pixel_idx)
+    return radiance
 
 
 def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,

@@ -2,10 +2,10 @@
 ``pbrpathtracer_tpu.ops.intersect.intersect_classic`` and ``mask_dead``.
 
 This is the route for CPU tensors and the plain version that the CUDA
-closest-hit kernel (``kernels/intersect.py``) is held against. Möller–Trumbore
-runs in the kernel's operation order, one elementwise op at a time, so on the
-card the two agree bit for bit when the kernel is built without FMA
-contraction.
+closest-hit kernels (``kernels/intersect.py``, ``kernels/intersect_list.py``)
+are held against. Möller–Trumbore runs in the kernels' operation order, one
+elementwise op at a time, so on the card they agree bit for bit when the
+kernels are built without FMA contraction.
 
 Acceptance: |a| >= EPS, 0 <= u <= 1, v >= 0, u + v <= 1, t > EPS and
 t > t_lower (an exclusive lower bound, used to re-trace past stochastically

@@ -5,7 +5,7 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-K1 and K2 are built to agree with their plain versions bit for bit
+K1, K2 and K4 are built to agree with their plain versions bit for bit
 (``--fmad=false``, IEEE division), so those comparisons are exact. K3 sums in
 double in a fixed order: it is held to an f64 reference at rtol 1e-6, atol
 1e-5 and must give the same bits on every call; its plain version
@@ -16,11 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import flat_plane_scene
 from pbrpathtracer_tpu_torch import (Camera, RenderConfig, builders,
                                      grad_render, render)
 from pbrpathtracer_tpu_torch.kernels import intersect as KI
+from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
 from pbrpathtracer_tpu_torch.kernels import packgather as KP
-from pbrpathtracer_tpu_torch.scene.scene import pack_geometry
+from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                      mesh_scene_camera)
+from pbrpathtracer_tpu_torch.scene.scene import finalize_scene, pack_geometry
 
 pytestmark = pytest.mark.gpu
 
@@ -86,9 +90,11 @@ def test_intersect_kernel_edge_cases(dev):
 
 @pytest.mark.parametrize("T,W,N", [(36, 55, 262_144), (2, 13, 1000),
                                    (588, 55, 100_000), (1000, 55, 77),
-                                   (256, 7, 0)])
+                                   (256, 7, 0), (49_970, 55, 262_144),
+                                   (1_000_000, 55, 65_536)])
 def test_packgather_kernel_matches_plain(dev, T, W, N):
-    """Tables that fit the 48 KB staging limit and tables that do not."""
+    """Tables that fit the 48 KB staging limit and tables that do not, up
+    to the tri packs of the 50k and 1M mesh scenes."""
     rs = np.random.RandomState(T)
     table = torch.tensor(rs.randn(T, W), dtype=torch.float32, device=dev)
     idx = rs.randint(-2, T + 2, N)
@@ -185,3 +191,130 @@ def test_grad_render_goes_through_the_kernels_only(dev):
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     for k, g in ref.items():
         torch.testing.assert_close(grads[k].cpu(), g, rtol=1e-4, atol=1e-6)
+
+
+# ---- K4, the BVH closest-hit kernel ----------------------------------------
+
+def _scene_rays(seed, n, dev, lo=(-4, 0.5, 1.0), hi=(4, 2.5, 12.0)):
+    rs = np.random.RandomState(seed)
+    ro = rs.uniform(lo, hi, (n, 3))
+    d = rs.normal(size=(n, 3))
+    d[:, 1] = -np.abs(d[:, 1]) - 1.0
+    rd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    t_lower = np.where(rs.uniform(size=n) < 0.3, rs.uniform(0, 2, n), 0.0)
+    alive = rs.uniform(size=n) < 0.8
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.tensor(ro, **f32), torch.tensor(rd, **f32),
+            torch.tensor(t_lower, **f32),
+            torch.tensor(alive, dtype=torch.bool, device=dev))
+
+
+def _k4_both(scene, ro, rd, t_lower, alive):
+    accel = scene.accel
+    out = KL.intersect_list(scene.geom, ro, rd, t_lower, alive, accel=accel)
+    ref = KL.intersect_list_plain(scene.geom, ro, rd, t_lower, alive,
+                                  None if accel is None else accel.perm)
+    return out, ref
+
+
+@pytest.mark.parametrize("accel", ["none", "always"])
+@pytest.mark.parametrize("n", [1, 1000, 65_536])
+def test_bvh_kernel_matches_plain_mesh_scene(dev, accel, n):
+    scene = mesh_scene(3000, accel=accel).to(dev)
+    out, ref = _k4_both(scene, *_scene_rays(n, n, dev))
+    _assert_same(out, ref)
+
+
+def test_bvh_kernel_matches_plain_flat_plane_and_retrace(dev):
+    """Rays down onto a flat quad above a flat plane, then re-traced past
+    the quad with t_lower; rays parallel to the planes, their origins on
+    the quad's plane (a flat box, rd.y = 0 on its slab plane)."""
+    scene = flat_plane_scene(37).to(dev)
+    n = 4096
+    rs = np.random.RandomState(3)
+    ro = np.stack([rs.uniform(-3, 3, n), np.full(n, 3.0),
+                   rs.uniform(-3, 3, n)], axis=1)
+    rd = np.tile([[0.0, -1.0, 0.0]], (n, 1))
+    ro[1::2, 1] = 1.0   # on the quad's plane
+    rd[1::4] = [0.6, 0.0, 0.8]  # parallel to the planes
+    f32 = dict(dtype=torch.float32, device=dev)
+    ro, rd = torch.tensor(ro, **f32), torch.tensor(rd, **f32)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    first, ref = _k4_both(scene, ro, rd, torch.zeros(n, **f32), alive)
+    _assert_same(first, ref)
+    down = torch.arange(n, device=dev) % 2 == 0
+    assert bool(first[0][down].all()) and not first[0][1::4].any()
+    assert torch.allclose(first[2][down], torch.full_like(first[2][down], 2.0))
+    again, ref = _k4_both(scene, ro, rd, first[2], alive)   # past the quad
+    _assert_same(again, ref)
+    assert torch.allclose(again[2][down], torch.full_like(again[2][down], 3.0))
+
+
+def test_bvh_kernel_ties_go_to_the_lowest_position(dev):
+    """Every triangle twice: the lower scene id wins without a BVH, the
+    lower BVH slot with one, on the card as in the plain version."""
+    plane = flat_plane_scene(37, quad=False)
+    g = plane.geom
+    twice = pack_geometry({"v0": torch.cat([g.v0, g.v0]).numpy(),
+                           "v1": torch.cat([g.v0 + g.e1] * 2).numpy(),
+                           "v2": torch.cat([g.v0 + g.e2] * 2).numpy()})
+    for accel in ("none", "always"):
+        scene = finalize_scene(twice, plane.materials, accel=accel).to(dev)
+        out, ref = _k4_both(scene, *_scene_rays(9, 8192, dev,
+                                                lo=(-2, 1, -2), hi=(2, 3, 2)))
+        _assert_same(out, ref)
+        assert float(out[0].float().mean()) > 0.5
+
+
+def test_bvh_kernel_caches_its_inputs_per_scene(dev):
+    scene = mesh_scene(3000, accel="none").to(dev)
+    ro, rd, t_lower, alive = _scene_rays(0, 256, dev)
+    KL.intersect_list(scene.geom, ro, rd, t_lower, alive)
+    prep = scene.geom._k4_prepared[1]
+    KL.intersect_list(scene.geom, ro, rd, t_lower, alive)
+    assert scene.geom._k4_prepared[1] is prep
+    assert scene.accel is None and torch.equal(prep.pos, prep.perm)
+
+
+def test_cuda_queries_never_reach_the_list_plain_version(dev, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("a CUDA query took the plain version")
+    scene = mesh_scene(3000, accel="always").to(dev)
+    ro, rd, t_lower, alive = _scene_rays(1, 512, dev)
+    monkeypatch.setattr(KL, "intersect_list_plain", refuse)
+    before = KL.intersect_list.launches
+    KL.intersect_list(scene.geom, ro, rd, t_lower, alive, accel=scene.accel)
+    assert KL.intersect_list.launches == before + 1
+
+
+def test_large_scene_render_goes_through_k4_only(dev):
+    cfg = RenderConfig(width=32, height=32, max_depth=3, spp=1, seed=1)
+    scene = mesh_scene(6000)
+    counters = (KI.intersect_dense, KI.intersect_dense_plain,
+                KL.intersect_list, KL.intersect_list_plain,
+                KP.gather_rows_t, KP.gather_rows_t_plain)
+    for fn in counters:
+        fn.launches = 0
+    img = render(scene.to(dev), mesh_scene_camera(), cfg)
+    torch.cuda.synchronize()
+    assert KL.intersect_list.launches > 0 and KP.gather_rows_t.launches > 0
+    assert KI.intersect_dense.launches == 0
+    assert KI.intersect_dense_plain.launches == 0
+    assert KL.intersect_list_plain.launches == 0
+    assert KP.gather_rows_t_plain.launches == 0
+    ref = render(scene, mesh_scene_camera(), cfg)
+    d = (img.cpu() - ref).abs().amax(dim=-1)
+    assert (d > 1e-3).float().mean() <= 0.005
+    assert d[d <= 1e-3].mean() < 1e-4
+
+
+@pytest.mark.parametrize("mode,order", [("sort", "scan"), ("gather", "scan"),
+                                        ("off", "block"), ("sort", "block")])
+def test_reordered_renders_are_bit_identical_on_the_card(dev, mode, order):
+    scene = mesh_scene(6000).to(dev)
+    kw = dict(width=64, height=48, max_depth=3, spp=1, seed=2)
+    ref = render(scene, mesh_scene_camera(), RenderConfig(
+        compact_wavefront="off", pixel_order="scan", **kw))
+    img = render(scene, mesh_scene_camera(), RenderConfig(
+        compact_wavefront=mode, pixel_order=order, **kw))
+    assert torch.equal(img, ref)

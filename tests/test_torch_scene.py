@@ -96,7 +96,7 @@ def test_config_segments_match_jax(depth, max_segments):
 
 
 @pytest.mark.parametrize("kw", [dict(brdf="ggx"),
-                                dict(compact_wavefront="sort")])
+                                dict(hit_vjp="winner")])
 def test_config_raises_for_unported_options(kw):
     with pytest.raises(NotImplementedError):
         RenderConfig(**kw)
