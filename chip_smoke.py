@@ -12,31 +12,39 @@ Phases, one line each, any failure ends the run with a non-zero exit:
 3. K1       -- the closest-hit kernel against its plain torch version, on the
                card: Cornell (1 chunk) and cornell_spheres (588 triangles,
                2 chunks), flagship primary rays and random rays with random
-               t_lower and alive, N = 262,144. Tolerance: hit/idx mismatches
-               on at most 1e-5 of lanes, |dt|, |du|, |dv| <= 1e-5 where the
-               winners agree (both are built to agree bit for bit).
+               t_lower and alive, N = 262,144; the same with t_lower=None
+               and alive=None, without and with a triangle order ``perm``;
+               the spheres queried between two Cornell queries (each
+               geometry keeps its own prepared rows). Every output bit-equal:
+               0 hit/idx mismatches, |dt| = |du| = |dv| = 0, misses and dead
+               lanes clean (idx = t = u = v = 0).
 4. K2       -- the pack-gather kernel against its plain version: the Cornell
                and spheres tri packs and the light pack, N = 262,144, with
                out-of-range ids. Must be bit-equal.
 5. flagship -- ``render`` of 512x512 Cornell, depth 4, 1 spp: finite, >= 0,
                lit (max > 0.5); both kernels launched on that run and neither
                plain version. Then CUDA-event times of the render and of each
-               kernel beside its plain version at the render's shapes.
+               kernel beside its plain version at the render's shapes, K2
+               beside ``torch.index_select``.
 6. goldens  -- rung1_cornell, rung2_spheres and rung4_translucent (128x128,
-               16 spp) against ``tests/goldens`` by ``benchmarks.goldens.compare``.
+               16 spp) against ``tests/goldens`` by the port's
+               ``utils.goldens.compare``.
 7. K3       -- the pack-gather backward kernel against an f64 ``index_add_``
                reference at rtol 1e-6, atol 1e-5 (tests/test_packgather.py's
                tolerance): the Cornell and spheres tri packs and the light
-               pack, N = 262,144, a random cotangent, out-of-range ids. Two
-               calls must be bit-identical. Its plain version (f32
-               ``index_add_``, atomics on the card) is reported beside it.
+               pack, N = 262,144, a random cotangent, out-of-range ids; the
+               flagship's primary hit ids; on the 36-row, 2-row and 1-row
+               tables, every lane on one row, every id out of range, and
+               N = 262,139. Two calls must be bit-identical. Its plain
+               version (f32 ``index_add_``, atomics on the card) is reported
+               beside it.
 8. flagship fwd+bwd -- ``grad_render`` of 512x512 Cornell, depth 4, 1 spp,
                materials, zero target: finite loss and gradients; K1, K2 and
                K3 launched on that run and no plain version. Then CUDA-event
                times of the forward render and of fwd+bwd with
                ``remat_segments`` "hits", "off" and "all", the peak device
-               memory of each, and K3 beside its plain version at the
-               backward's shapes.
+               memory of each, and K3 beside its plain version and beside
+               one ``index_add_`` at the backward's shapes.
 9. gradcheck -- 64x64, depth 2, spp 2: AD against central FD on the
                non-max diffuse channels of the red wall at rtol 5e-3
                (tests/test_diff.py's case).
@@ -66,23 +74,39 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                texel gradients at 64^2, depth 2 (rel < 1%); the textured
                256^2 backward (the shape that faulted on the TPU, finite).
 15. goldens -- rung3_mesh50k and rung5_million (200k triangles) against
-               ``tests/goldens`` by ``benchmarks.goldens.compare``.
+               ``tests/goldens`` by ``utils.goldens.compare``.
 16. 1M      -- ``million_tri_scene``, 512x512 depth 3 1 spp forward: finite,
                timed, peak device memory.
 17. timing  -- K4 per query beside its plain version, the 50k render per spp
                without and with compaction ("off"/"scan" and "sort"/"block",
                in turns), K2 at the 50k and 1M tri packs and K3 at the 50k
-               tri pack, each beside its plain version.
+               tri pack, each beside its plain version. K2 also beside
+               ``torch.index_select``. K3 at the 50k and 1M tri packs on the
+               512^2 primary hit ids and on random ids against f64, the edge
+               cases on the 50k-row table, its scratch at the 1M pack, and
+               its time beside its plain version and one ``index_add_`` (K3
+               must not be the slower at the 50k pack). K4's bound.
+18. launches -- after every timing: one K1 query is one kernel launch and
+               dispatches no ATen operator but its allocations (counted
+               by a ``TorchDispatchMode``). Then, by ``torch.profiler``, for
+               the record (the profiler may deliver no device events; then
+               the line says so): the K1 kernel's own time beside the
+               wrapper's, K3's device time by kernel at the Cornell and 50k
+               packs, and the device kernels of one flagship render and of
+               one 512^2 material gradient of the 50k scene with K3's share.
 Every large-scene run (phases 14-16) is driven with the launch counters at 0
 and must launch K4, never K1 (``intersect_dense``) and no plain version.
 
-Then one JSON line of per-kernel results, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}`` last.
+Then one JSON line of per-kernel results (time, plain version's time, the
+library call's time where one PyTorch call computes the same function, and
+the bound: bytes over 3.35 TB/s against FP32 operations over 67 T/s), the
+nvidia-smi line, and the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +126,12 @@ RUNG3_SPP = 64
 MILLION_RAYS = 16_384
 PLANE_RAYS = 65_536
 K3_RTOL, K3_ATOL = 1e-6, 1e-5
+# Published peaks of the H100 SXM, for the kernels' bounds: device memory
+# 3.35 TB/s; 67 T FP32 operations a second outside the tensor cores. A
+# Möller-Trumbore pair test is 47 FP32 operations, a slab test 27.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+PAIR_OPS, SLAB_OPS = 47, 27
 
 
 def require(cond, msg):
@@ -141,26 +171,37 @@ def random_rays(rs, n, device):
             torch.tensor(alive, dtype=torch.bool, device=device))
 
 
-def compare_k1(name, geom, ro, rd, t_lower, alive):
+def compare_k1(name, geom, ro, rd, t_lower, alive, perm=None):
+    """K1 against its plain version: every output bit-equal (hit, idx, t, u,
+    v), dead lanes and misses clean. ``t_lower`` and ``alive`` may be None
+    (the plain version then gets zeros and ones)."""
     import torch
     from pbrpathtracer_tpu_torch.kernels.intersect import (
         intersect_dense, intersect_dense_plain)
-    kh, ki, kt, ku, kv = intersect_dense(geom, ro, rd, t_lower, alive)
-    ph, pi, pt, pu, pv = intersect_dense_plain(geom, ro, rd, t_lower, alive)
+    n, dev = ro.shape[0], ro.device
+    kh, ki, kt, ku, kv = intersect_dense(geom, ro, rd, t_lower, alive,
+                                         perm=perm)
+    if t_lower is None:
+        t_lower = torch.zeros(n, dtype=torch.float32, device=dev)
+    if alive is None:
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+    ph, pi, pt, pu, pv = intersect_dense_plain(geom, ro, rd, t_lower, alive,
+                                               perm)
     torch.cuda.synchronize()
-    mism = (kh != ph) | (ki != pi)
-    n_mism = int(mism.sum())
-    agree = ~mism
-    err = max(float((a - b)[agree].abs().max())
+    require(kh.dtype == torch.bool and ki.dtype == torch.int32,
+            f"K1 {name}: output types {kh.dtype}, {ki.dtype}")
+    n_mism = int(((kh != ph) | (ki != pi)).sum())
+    err = max(float((a - b).abs().max()) if n else 0.0
               for a, b in ((kt, pt), (ku, pu), (kv, pv)))
-    dead_ok = bool((~kh[~alive]).all() and (ki[~alive] == 0).all()
-                   and (kt[~alive] == 0).all())
-    print(f"K1 {name}: lanes={ro.shape[0]} hits={int(kh.sum())} "
+    off = ~kh
+    clean = bool((~kh[~alive]).all()) and all(
+        bool((x[off] == 0).all()) for x in (ki, kt, ku, kv))
+    print(f"K1 {name}: lanes={n} hits={int(kh.sum())} "
           f"hit/idx mismatches={n_mism} max|dt,du,dv|={err:.3g} "
-          f"dead-lanes-clean={dead_ok}", flush=True)
-    require(n_mism <= K1_TOL * ro.shape[0], f"K1 {name}: {n_mism} mismatches")
-    require(err <= K1_TOL, f"K1 {name}: max error {err}")
-    require(dead_ok, f"K1 {name}: dead lanes not a clean miss")
+          f"misses-and-dead-lanes-clean={clean}", flush=True)
+    require(n_mism == 0, f"K1 {name}: {n_mism} mismatches")
+    require(err == 0.0, f"K1 {name}: max error {err}")
+    require(clean, f"K1 {name}: a miss or a dead lane is not a clean miss")
     return err
 
 
@@ -210,16 +251,17 @@ def compare_k2(name, table, idx):
     return err
 
 
-def compare_k3(name, table, rs, dev):
-    """K3 on N_RAYS lanes with out-of-range ids against f64; two calls
-    bit-identical. Returns (max |kernel - f64|, max |plain - f64|)."""
+def compare_k3(name, T, W, idx_t, rs):
+    """K3 on the ids ``idx_t`` with a random cotangent against f64 at
+    rtol 1e-6 / atol 1e-5; two calls bit-identical. Returns
+    max |kernel - f64|."""
     import torch
     from pbrpathtracer_tpu_torch.kernels.packgather import (
         gather_rows_t_bwd, gather_rows_t_bwd_plain)
-    T, W = table.shape
-    idx_t = random_ids(rs, T, dev)
-    cot = torch.tensor(rs.normal(size=(W, N_RAYS)), dtype=torch.float32,
-                       device=dev)
+    n, dev = idx_t.shape[0], idx_t.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rs.randint(1 << 31)))
+    cot = torch.randn((W, n), generator=gen, dtype=torch.float32, device=dev)
     ok = (idx_t >= 0) & (idx_t < T)
     ref = torch.zeros((T, W), dtype=torch.float64, device=dev).index_add_(
         0, idx_t[ok].long(), cot.double().T[ok])
@@ -232,12 +274,103 @@ def compare_k3(name, table, rs, dev):
     plain_err = float((plain.double() - ref).abs().max())
     close = bool(torch.allclose(k1.double(), ref, rtol=K3_RTOL,
                                 atol=K3_ATOL))
-    print(f"K3 {name}: T={T} W={W} N={N_RAYS} max|k-f64|={err:.3g} "
-          f"max|plain-f64|={plain_err:.3g} within tol={close} "
-          f"bit-identical repeat={same}", flush=True)
+    print(f"K3 {name}: T={T} W={W} N={n} in-range={int(ok.sum())} "
+          f"rows touched={int(torch.unique(idx_t[ok]).numel())} "
+          f"max|k-f64|={err:.3g} max|plain-f64|={plain_err:.3g} "
+          f"within tol={close} bit-identical repeat={same}", flush=True)
     require(close, f"K3 {name}: off the f64 reference by {err}")
     require(same, f"K3 {name}: two calls differ")
     return err
+
+
+def k3_edge_cases(T, W, rs, dev):
+    """K3 on ids that no random draw gives: every lane on one row, every id
+    out of range, a lane count that no block size divides. Returns the max
+    error."""
+    import torch
+    n = 262_139
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = torch.tensor(rs.choice([-1, T, T + 3], n), **i32)
+    return max(
+        compare_k3(f"T={T}/one row", T, W,
+                   torch.full((N_RAYS,), T // 2, **i32), rs),
+        compare_k3(f"T={T}/all out of range", T, W, out, rs),
+        compare_k3(f"T={T}/N={n}", T, W, random_ids(rs, T, dev)[:n], rs))
+
+
+def device_kernels(fn):
+    """The device kernels that one call of ``fn`` launches, by name, from
+    ``torch.profiler``: {name: (count, total microseconds)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            count, us = out.get(ev.name, (0, 0.0))
+            out[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
+    return out
+
+
+def index_add_ms(idx, cot, T):
+    """One ``index_add_`` of ``cot.T`` into a [T, W] buffer over the
+    in-range ids ``idx``: the library call K3 is measured against."""
+    import torch
+    buf = torch.zeros((T, cot.shape[0]), dtype=torch.float32,
+                      device=cot.device)
+    ids, rows = idx.long(), cot.T
+    return cuda_ms(lambda: buf.index_add_(0, ids, rows), 20)
+
+
+def short_name(kernel):
+    """A device kernel's name without namespaces, template and call
+    arguments."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name)[0].split("::")[-1].split()[-1]
+
+
+def k3_breakdown(name, idx, cot, T):
+    """Device time of one K3 call by kernel, from ``torch.profiler``."""
+    from pbrpathtracer_tpu_torch.kernels.packgather import gather_rows_t_bwd
+    per = device_kernels(lambda: gather_rows_t_bwd(idx, cot, T))
+    print(f"K3 {name} by kernel, us: "
+          + ", ".join(f"{short_name(k)} x{c} {us:.1f}"
+                      for k, (c, us) in per.items())
+          + f"; sum {sum(us for _, us in per.values()):.1f}", flush=True)
+
+
+def torch_ops(fn):
+    """The ATen operators that one call of ``fn`` dispatches, by name: every
+    eager torch kernel comes from one, a kernel launched through ctypes from
+    none."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.ops
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time the card could take: the bytes (every input read once,
+    every output written once) at HBM_BYTES_S against the operations at
+    FP32_OPS_S. Returns (ms, "bytes" or "operations")."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / FP32_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def peak_mb(fn):
@@ -594,13 +727,13 @@ def large_scene_phases(dev, rs, smi_line):
     packs."""
     import numpy as np
     import torch
-    from benchmarks.goldens import GOLDEN_DIR, compare
     from pbrpathtracer_tpu_torch import RenderConfig, render
     from pbrpathtracer_tpu_torch.kernels.packgather import (
-        gather_rows_t, gather_rows_t_bwd, gather_rows_t_bwd_plain,
+        bwd_plan, gather_rows_t, gather_rows_t_bwd, gather_rows_t_bwd_plain,
         gather_rows_t_plain)
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
     from pbrpathtracer_tpu_torch.ops.camera import generate_rays
+    from pbrpathtracer_tpu_torch.utils.goldens import GOLDEN_DIR, compare
     # ---- 12. big scenes ----
     from pbrpathtracer_tpu_torch.kernels.intersect_list import (
         intersect_list, intersect_list_plain)
@@ -703,27 +836,88 @@ def large_scene_phases(dev, rs, smi_line):
           flush=True)
     k2_ms = {}
     for pname, table, prim in (("50k", pack50k, midx), ("1M", pack1m, idx1m)):
+        table_t = table.T
         k2_ms[pname] = (cuda_ms(lambda: gather_rows_t(table, prim), 20),
                         cuda_ms(lambda: gather_rows_t_plain(table, prim), 20),
+                        cuda_ms(lambda: torch.index_select(table_t, 1, prim),
+                                20),
                         cuda_ms(lambda: gather_rows_t(table, prim), 20))
     print(f"timing K2 ({smi_line}), 512^2 primary hit ids: "
           + " | ".join(f"{p} tri pack: {k:.4f} / {k2:.4f} ms vs plain "
-                       f"{pl:.4f} ms" for p, (k, pl, k2) in k2_ms.items()),
+                       f"{pl:.4f} ms, index_select {lib:.4f} ms"
+                       for p, (k, pl, lib, k2) in k2_ms.items()),
           flush=True)
-    del pack1m, idx1m
-    k3_err = compare_k3("50k tri pack", pack50k, rs, dev)
-    cot50k = torch.tensor(rs.normal(size=(pack50k.shape[1], midx.shape[0])),
-                          dtype=torch.float32, device=dev)
-    T50k = pack50k.shape[0]
-    k3_50k_ms = cuda_ms(lambda: gather_rows_t_bwd(midx, cot50k, T50k), 5)
-    k3_50k_plain_ms = cuda_ms(lambda: gather_rows_t_bwd_plain(
-        midx, cot50k, T50k), 5)
-    k3_50k_ms_2 = cuda_ms(lambda: gather_rows_t_bwd(midx, cot50k, T50k), 5)
-    print(f"timing K3 ({smi_line}): 50k tri pack {T50k}x{pack50k.shape[1]}, "
-          f"primary hit ids: {k3_50k_ms:.4f} / {k3_50k_ms_2:.4f} ms vs "
-          f"plain {k3_50k_plain_ms:.4f} ms", flush=True)
+
+    # K3 at the 50k and 1M tri packs: the 512^2 primary hit ids (coherent
+    # runs; row 0 of the 1M pack collects every miss) and random ids, then
+    # the edge cases on the tall table; the scratch of the 1M case
+    k3_err, k3_ms = 0.0, {}
+    W = pack50k.shape[1]
+    cot = torch.tensor(rs.normal(size=(W, midx.shape[0])),
+                       dtype=torch.float32, device=dev)
+    for pname, T, prim in (("50k", pack50k.shape[0], midx),
+                           ("1M", pack1m.shape[0], idx1m)):
+        heavy = int(torch.bincount(prim.long()).max())
+        print(f"K3 {pname} tri pack, primary hit ids: the heaviest row owns "
+              f"{heavy} of {prim.shape[0]} lanes", flush=True)
+        k3_err = max(k3_err,
+                     compare_k3(f"{pname} tri pack/primary", T, W, prim, rs),
+                     compare_k3(f"{pname} tri pack/random", T, W,
+                                random_ids(rs, T, dev), rs))
+        k3_ms[pname] = (
+            cuda_ms(lambda: gather_rows_t_bwd(prim, cot, T), 20),
+            cuda_ms(lambda: gather_rows_t_bwd_plain(prim, cot, T), 20),
+            index_add_ms(prim, cot, T),
+            cuda_ms(lambda: gather_rows_t_bwd(prim, cot, T), 20))
+    k3_err = max(k3_err, k3_edge_cases(pack50k.shape[0], W, rs, dev))
+    T1m = pack1m.shape[0]
+    del pack1m
+    plan = bwd_plan(idx1m.shape[0], T1m, W)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = gather_rows_t_bwd(idx1m, cot, T1m)
+    torch.cuda.synchronize()
+    extra_mb = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    out_mb = out.numel() * 4 / 2 ** 20
+    print(f"K3 1M tri pack scratch: planned {plan.scratch_bytes / 2 ** 20:.2f}"
+          f" MB ({plan.passes} sort passes, {plan.chunks} chunks; 16 N + "
+          f"N W / 32 bytes and change, nothing per row), measured peak "
+          f"{extra_mb:.1f} MB above what was held = the {out_mb:.1f} MB "
+          f"output + {extra_mb - out_mb:.2f} MB", flush=True)
+    require(extra_mb - out_mb <= plan.scratch_bytes / 2 ** 20 + 4.0,
+            "K3 allocated more than its planned scratch")
+    del out, idx1m
+    n = midx.shape[0]
+    k3_bounds = {"50k": bound_ms(4 * n + 4 * n * W + 4 * pack50k.shape[0] * W,
+                                 n * W)[0],
+                 "1M": bound_ms(4 * n + 4 * n * W + 4 * T1m * W, n * W)[0]}
+    print(f"timing K3 ({smi_line}), 512^2 primary hit ids: "
+          + " | ".join(f"{p} tri pack: {k:.4f} / {k2:.4f} ms vs plain "
+                       f"{pl:.4f} ms, index_add_ alone {lib:.4f} ms, bound "
+                       f"{k3_bounds[p]:.4f} ms by bytes"
+                       for p, (k, pl, lib, k2) in k3_ms.items()),
+          flush=True)
+    require(k3_ms["50k"][0] <= k3_ms["50k"][2],
+            "K3 at the 50k tri pack is slower than index_add_")
+
+    # K4's bound: every input and output once against the least walk: one
+    # slab test per BVH level for a live ray, one leaf of pair tests for a hit
+    n_rays = mro.shape[0]
+    levels = max(1, (big.accel.num_nodes + 1).bit_length() - 1)
+    hits = int(intersect_list(big.geom, mro, mrd, mzeros, mones,
+                              accel=big.accel)[0].sum())
+    k4_bound = bound_ms(
+        n_rays * (24 + 4 + 1 + 17) + big.accel.num_nodes * 48
+        + big.num_triangles * 44,
+        n_rays * levels * SLAB_OPS + hits * big.accel.leaf_size * PAIR_OPS)
+    print(f"bound K4 50k primary: {k4_bound[0]:.4f} ms by {k4_bound[1]} "
+          f"({levels} levels, {hits} hits, leaves of "
+          f"{big.accel.leaf_size})", flush=True)
     return {"launches": k4_launches, "err": k4_err, "ms": k4_ms,
-            "plain_ms": k4_plain_ms, "k2_err": k2_err, "k3_err": k3_err}
+            "plain_ms": k4_plain_ms, "bound": k4_bound, "k2_err": k2_err,
+            "k3_err": k3_err, "scene": big, "camera": mcam, "cfg": mcfg,
+            "primary_ids": midx, "cot": cot, "rows": pack50k.shape[0]}
 
 
 def main():
@@ -776,11 +970,32 @@ def main():
     ones = torch.ones(N_RAYS, dtype=torch.bool, device=dev)
     rs = np.random.RandomState(0)
     k1_err = 0.0
+    rays = random_rays(rs, N_RAYS, dev)
     for sname, scene in (("cornell", cornell), ("spheres", spheres)):
         k1_err = max(k1_err, compare_k1(f"{sname}/primary", scene.geom,
                                         ro, rd, zeros, ones))
-        k1_err = max(k1_err, compare_k1(f"{sname}/random", scene.geom,
-                                        *random_rays(rs, N_RAYS, dev)))
+        k1_err = max(k1_err, compare_k1(f"{sname}/random", scene.geom, *rays))
+    # no t_lower and no alive, without and with a triangle order; then the
+    # spheres queried between two queries of Cornell: each geometry keeps
+    # its own prepared rows, whatever was queried last
+    for sname, scene in (("cornell", cornell), ("spheres", spheres)):
+        perm = torch.tensor(rs.permutation(scene.num_triangles),
+                            dtype=torch.int32, device=dev)
+        for pname, p in (("no perm", None), ("perm", perm)):
+            k1_err = max(
+                k1_err,
+                compare_k1(f"{sname}/primary, t_lower=None alive=None, "
+                           f"{pname}", scene.geom, ro, rd, None, None, p),
+                compare_k1(f"{sname}/random, {pname}", scene.geom, *rays, p))
+    first = intersect_dense(cornell.geom, *rays)
+    k1_err = max(k1_err, compare_k1("spheres between two Cornell queries",
+                                    spheres.geom, *rays))
+    again = intersect_dense(cornell.geom, *rays)
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            "K1: a query of another scene changed Cornell's answers")
+    k1_err = max(k1_err, compare_k1("cornell after the spheres",
+                                    cornell.geom, *rays))
+    del first, again, rays, perm   # not held through the peak-memory phases
 
     # ---- 4. K2 vs plain ----
     k2_err = 0.0
@@ -825,12 +1040,15 @@ def main():
         cornell.geom, ro, rd, zeros, ones), 5)
     k2_ms = cuda_ms(lambda: gather_rows_t(tri_pack, idx), 20)
     k2_plain_ms = cuda_ms(lambda: gather_rows_t_plain(tri_pack, idx), 20)
+    pack_t = tri_pack.T
+    k2_lib_ms = cuda_ms(lambda: torch.index_select(pack_t, 1, idx), 20)
+    k1_none_ms = cuda_ms(lambda: intersect_dense(cornell.geom, ro, rd), 20)
     print(f"timing ({smi_line}): render {render_ms:.3f} ms | "
           f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms | "
-          f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms", flush=True)
-
+          f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, "
+          f"index_select {k2_lib_ms:.4f} ms", flush=True)
     # ---- 6. goldens ----
-    from benchmarks.goldens import GOLDEN_DIR, compare
+    from pbrpathtracer_tpu_torch.utils.goldens import GOLDEN_DIR, compare
     goldens = {
         "rung1_cornell": (builders.cornell_box, {},
                           dict(width=128, height=128, max_depth=3, spp=16)),
@@ -855,7 +1073,17 @@ def main():
     for pname, table in (("cornell tri pack", sp.build_tri_pack(cornell)),
                          ("spheres tri pack", sp.build_tri_pack(spheres)),
                          ("light pack", sp.build_light_pack(cornell))):
-        k3_err = max(k3_err, compare_k3(pname, table, rs, dev))
+        T, W = table.shape
+        k3_err = max(k3_err, compare_k3(pname, T, W, random_ids(rs, T, dev),
+                                        rs))
+    # the flagship's own ids (coherent runs), then the shapes no random draw
+    # gives, on the 36-row pack, the 2-row light pack and a 1-row table
+    k3_err = max(k3_err,
+                 compare_k3("cornell tri pack/primary", *tri_pack.shape, idx,
+                            rs),
+                 k3_edge_cases(*tri_pack.shape, rs, dev),
+                 k3_edge_cases(*sp.build_light_pack(cornell).shape, rs, dev),
+                 k3_edge_cases(1, 7, rs, dev))
 
     # ---- 8. flagship fwd+bwd ----
     zero = torch.zeros((512, 512, 3), device=dev)
@@ -900,9 +1128,10 @@ def main():
         idx, cot, tri_pack.shape[0]), 20)
     k3_ms_2 = cuda_ms(lambda: gather_rows_t_bwd(idx, cot, tri_pack.shape[0]),
                       20)
+    k3_lib_ms = index_add_ms(idx, cot, tri_pack.shape[0])
     print(f"timing K3 ({smi_line}): Cornell tri pack, flagship primary hit "
-          f"ids: {k3_ms:.4f} / {k3_ms_2:.4f} ms vs plain {k3_plain_ms:.4f} ms",
-          flush=True)
+          f"ids: {k3_ms:.4f} / {k3_ms_2:.4f} ms vs plain {k3_plain_ms:.4f} ms, "
+          f"index_add_ alone {k3_lib_ms:.4f} ms", flush=True)
 
     # ---- 9-11. gradcheck, fit, texture gradients ----
     gradcheck_phase(cornell, camera)
@@ -913,30 +1142,103 @@ def main():
     k4 = large_scene_phases(dev, rs, smi_line)
     k2_err = max(k2_err, k4["k2_err"])
     k3_err = max(k3_err, k4["k3_err"])
+    # ---- 18. what a query, a render and a gradient launch ----
+    # (last, so that the profiler cannot weigh on any time above)
+    from pbrpathtracer_tpu_torch.kernels.packgather import gather_rows_t_bwd
+    perm = None if cornell.accel is None else cornell.accel.perm
+
+    def query():
+        return intersect_dense(cornell.geom, ro, rd, zeros, ones, perm=perm)
+    before = intersect_dense.launches
+    ops = torch_ops(query)
+    print(f"K1 query: {intersect_dense.launches - before} kernel launch, "
+          f"ATen operators dispatched: {ops}", flush=True)
+    require(intersect_dense.launches == before + 1
+            and all(k.startswith("aten.empty") for k in ops),
+            "a K1 query ran an eager torch kernel beside its allocations")
+
+    def ten_queries():
+        for _ in range(10):
+            query()
+    per_query = device_kernels(ten_queries)
+    n_query_kernels = sum(c for c, _ in per_query.values())
+    k1_raw = (f"{sum(us for _, us in per_query.values()) / 1e4:.4f} ms"
+              if n_query_kernels else "not measured (no device events)")
+    print(f"timing K1 per query ({smi_line}): wrapper {k1_ms:.4f} ms "
+          f"({k1_none_ms:.4f} ms with t_lower=None, alive=None), its kernel "
+          f"{k1_raw}; device kernels of ten queries: "
+          f"{ {short_name(k): c for k, (c, _) in per_query.items()} }",
+          flush=True)
+    require(n_query_kernels in (0, 10) and len(per_query) <= 1,
+            "ten K1 queries launched more than ten device kernels")
+    k3_breakdown("Cornell tri pack, primary hit ids", idx, cot,
+                 tri_pack.shape[0])
+    k3_breakdown("50k tri pack, primary hit ids", k4["primary_ids"],
+                 k4["cot"], k4["rows"])
+    per_render = device_kernels(lambda: render(cornell, camera, cfg))
+    n_kernels = sum(c for c, _ in per_render.values())
+    k1_kernels = sum(c for k, (c, _) in per_render.items()
+                     if "intersect_dense_kernel" in k)
+    print(f"flagship render: {n_kernels} device kernels, "
+          f"{sum(us for _, us in per_render.values()) / 1e3:.3f} ms of device "
+          f"time; {k1_kernels} of them K1 for {launches['intersect_dense']} "
+          f"queries", flush=True)
+    big_zero = torch.zeros((RUNG3_SIZE, RUNG3_SIZE, 3), device=dev)
+    per_grad = device_kernels(lambda: grad_render(
+        k4["scene"], k4["camera"], k4["cfg"], big_zero))
+    total_us = sum(us for _, us in per_grad.values())
+    k3_us = sum(us for k, (_, us) in per_grad.items() if "::bwd_" in k)
+    top = sorted(per_grad.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"50k material gradient {RUNG3_SIZE}x{RUNG3_SIZE} depth 3 spp 1: "
+          f"{sum(c for c, _ in per_grad.values())} device kernels, "
+          f"{total_us / 1e3:.1f} ms of device time, K3's kernels "
+          f"{k3_us / 1e3:.3f} ms; the largest: "
+          + "; ".join(f"{short_name(k)} x{c} {us / 1e3:.1f} ms"
+                      for k, (c, us) in top), flush=True)
+
     print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
           flush=True)
 
+    # bounds at the shapes timed above (N_RAYS flagship primary rays, the
+    # Cornell tri pack): every input read once, every output written once,
+    # against the operations these inputs need
+    n, (T, W) = N_RAYS, tri_pack.shape
+    k1_bound = bound_ms(n * (24 + 4 + 1 + 17) + T * 36 + 24,
+                        n * (SLAB_OPS + T * PAIR_OPS))
+    k2_bound = bound_ms(n * 4 + T * W * 4 + n * W * 4, 0)
+    k3_bound = bound_ms(n * 4 + n * W * 4 + T * W * 4, n * W)
+    k4_bound = k4["bound"]
+    print(f"bounds ({smi_line}): K1 {k1_bound[0]:.4f} ms by {k1_bound[1]}, "
+          f"K2 {k2_bound[0]:.4f} ms by {k2_bound[1]}, K3 {k3_bound[0]:.4f} ms "
+          f"by {k3_bound[1]}, K4 {k4_bound[0]:.4f} ms by {k4_bound[1]}",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "intersect_dense", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/intersect.cu",
          "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas.py:216",
          "launches": launches["intersect_dense"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "gather_rows_t", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/packgather.cu",
          "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:91",
          "launches": launches["gather_rows_t"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
         {"name": "gather_rows_t_bwd", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/packgather.cu",
          "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:111",
          "launches": bwd_launches["gather_rows_t_bwd"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": k3_lib_ms},
         {"name": "intersect_list", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/bvh_intersect.cu",
          "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas_list.py:357",
          "launches": k4["launches"], "max_abs_err": k4["err"],
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """ctypes bridge to the native C++ SAH BVH builder.
 
-The source is the JAX package's ``pbrpathtracer_tpu/accel/cpp/bvh_builder.cpp``,
-compiled where it stands with the JAX package's g++ flags, so the two
-packages run one builder and cannot drift apart. The library goes to the
-port's ``csrc/_build/`` and is rebuilt when the source is newer than it.
+The source is the port's own copy, ``csrc/bvh_builder.cpp``, of the JAX
+package's C++ file, compiled with the JAX package's g++ flags; a test holds
+the two files byte-equal, so the packages cannot drift apart. The library
+goes to the port's ``csrc/_build/`` and is rebuilt when the source is newer
+than it.
 
 Unlike the JAX package, a failed build raises: the builder decides ``perm``,
 and ``perm`` decides both the tie order of the closest-hit queries and their
@@ -22,8 +23,7 @@ import numpy as np
 from .build import FlatBVH, build_bvh as build_bvh_numpy, from_arrays
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "pbrpathtracer_tpu", "accel", "cpp",
-                   "bvh_builder.cpp")
+SRC = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
 LIB_PATH = os.path.join(_PKG, "csrc", "_build", "libptxbvh.so")
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 NATIVE_THRESHOLD = 20000

@@ -4,19 +4,27 @@
 // by _run (the dense route of intersect_pallas, scenes of at most 4 chunks of
 // 512 triangles). It computes the same function: per ray, the closest
 // Möller–Trumbore hit over all triangles with t > EPS and t > t_lower; ties go
-// to the lowest triangle row; a miss or a dead lane keeps t = BIG, u = v = 0,
-// id = 0 (the wrapper turns BIG into a clean miss).
+// to the lowest triangle row. The kernel writes the query's final outputs:
+// hit as the bytes of a bool, the winner's id mapped through `perm` (the
+// scene id of each row; null: the row itself), and a clean miss
+// (hit 0, idx = t = u = v = 0) for misses and dead lanes. Nothing is left for
+// the wrapper to do, so a query is one launch.
 //
 // What bounds it: at 24-588 triangles and 2^18 rays the work is pair tests,
-// ~40 FP32 operations each, against 9 floats of triangle data that every ray
+// ~47 FP32 operations each, against 9 floats of triangle data that every ray
 // reads, so the kernel is bound by FP32 issue, not by device memory (a ray
-// reads 32 bytes and writes 16). The design answers that:
+// reads 29 bytes and writes 17). The design answers that:
 //   * one thread per ray; a block stages each chunk of <= 512 triangles
-//     (18 KB) into shared memory once, where all its threads read the same
-//     triangle at the same time (a broadcast, no bank conflicts);
+//     into shared memory once, as three float4 per triangle (24 KB), where
+//     all its threads read the same triangle at the same time (a broadcast,
+//     no bank conflicts, three 16-byte loads per pair test instead of nine);
+//   * a block's rays come in as two coalesced runs of 3 x 128 floats through
+//     shared memory, not as stride-3 reads per thread;
 //   * before a chunk, each thread slab-tests the chunk's EPS-inflated box,
 //     pruned by its running best t and by `alive`; __syncthreads_or skips the
 //     staging and the pair tests when no ray of the block can hit the chunk.
+// The tensor cores do not apply: a pair test must round after every product
+// and sum as the plain version does, which no matrix instruction offers.
 //
 // Numerics: built with --fmad=false and without fast math, so every product
 // and sum rounds on its own, in the order of intersect_pallas.py:174-196 and
@@ -48,23 +56,35 @@ intersect_dense_kernel(const float* __restrict__ ro,
                        const uint8_t* __restrict__ alive,
                        const float* __restrict__ tris,
                        const float* __restrict__ boxes,
+                       const int* __restrict__ perm,
                        int n, int n_tris, int chunk,
+                       uint8_t* __restrict__ out_hit, int* __restrict__ out_i,
                        float* __restrict__ out_t, float* __restrict__ out_u,
-                       float* __restrict__ out_v, int* __restrict__ out_i) {
-  __shared__ float s_tri[kMaxChunk * 9];
+                       float* __restrict__ out_v) {
+  __shared__ float4 s_tri[kMaxChunk * 3];
+  __shared__ float s_ro[kThreads * 3];
+  __shared__ float s_rd[kThreads * 3];
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = lane < n && alive[lane] != 0;
+  const int lane0 = blockIdx.x * kThreads;
+  const int lane = lane0 + threadIdx.x;
+  const int staged = 3 * min(kThreads, n - lane0);
+  for (int k = threadIdx.x; k < staged; k += kThreads) {
+    s_ro[k] = ro[(size_t)3 * lane0 + k];
+    s_rd[k] = rd[(size_t)3 * lane0 + k];
+  }
+  __syncthreads();
+  // null alive: every lane is live; null t_lower: no lower bound
+  const bool live = lane < n && (alive == nullptr || alive[lane] != 0);
   float rdx = 1.0f, rdy = 1.0f, rdz = 1.0f;
   float rox = 0.0f, roy = 0.0f, roz = 0.0f, tl = 0.0f;
   if (live) {
-    rdx = rd[3 * lane + 0];
-    rdy = rd[3 * lane + 1];
-    rdz = rd[3 * lane + 2];
-    rox = ro[3 * lane + 0];
-    roy = ro[3 * lane + 1];
-    roz = ro[3 * lane + 2];
-    tl = t_lower[lane];
+    rdx = s_rd[3 * threadIdx.x + 0];
+    rdy = s_rd[3 * threadIdx.x + 1];
+    rdz = s_rd[3 * threadIdx.x + 2];
+    rox = s_ro[3 * threadIdx.x + 0];
+    roy = s_ro[3 * threadIdx.x + 1];
+    roz = s_ro[3 * threadIdx.x + 2];
+    if (t_lower != nullptr) tl = t_lower[lane];
   }
   const float irx = safe_inv(rdx), iry = safe_inv(rdy), irz = safe_inv(rdz);
 
@@ -88,16 +108,21 @@ intersect_dense_kernel(const float* __restrict__ ro,
 
     const int base = c * chunk;
     const int rows = min(chunk, n_tris - base);
-    for (int k = threadIdx.x; k < rows * 9; k += blockDim.x)
-      s_tri[k] = tris[base * 9 + k];
+    // [rows, 9] rows (v0, e1, e2) into three padded float4 per triangle
+    float* s_flat = reinterpret_cast<float*>(s_tri);
+    for (int k = threadIdx.x; k < rows * 9; k += kThreads) {
+      const int row = k / 9, col = k - 9 * row;
+      s_flat[12 * row + 4 * (col / 3) + col % 3] = tris[(size_t)base * 9 + k];
+    }
     __syncthreads();
     if (!can_hit) continue;
 
     for (int j = 0; j < rows; ++j) {
-      const float* tri = s_tri + 9 * j;
-      const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-      const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-      const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+      const float4 p0 = s_tri[3 * j], p1 = s_tri[3 * j + 1],
+                   p2 = s_tri[3 * j + 2];
+      const float v0x = p0.x, v0y = p0.y, v0z = p0.z;
+      const float e1x = p1.x, e1y = p1.y, e1z = p1.z;
+      const float e2x = p2.x, e2y = p2.y, e2z = p2.z;
       const float hx = rdy * e2z - rdz * e2y;
       const float hy = rdz * e2x - rdx * e2z;
       const float hz = rdx * e2y - rdy * e2x;
@@ -128,26 +153,32 @@ intersect_dense_kernel(const float* __restrict__ ro,
     }
   }
   if (lane < n) {
-    out_t[lane] = best_t;
+    // best_u, best_v and best_i are still 0 on a miss
+    const bool hit = best_t < kBig;
+    out_hit[lane] = hit ? 1 : 0;
+    out_i[lane] = hit && perm != nullptr ? perm[best_i] : best_i;
+    out_t[lane] = hit ? best_t : 0.0f;
     out_u[lane] = best_u;
     out_v[lane] = best_v;
-    out_i[lane] = best_i;
   }
 }
 
 }  // namespace
 
+// t_lower, alive and perm may be null (no lower bound, every lane alive, ids
+// are rows). out_hit is the storage of a bool tensor.
 extern "C" int pbr_intersect_dense(const float* ro, const float* rd,
                                    const float* t_lower, const uint8_t* alive,
                                    const float* tris, const float* boxes,
-                                   int n, int n_tris, int chunk, float* out_t,
-                                   float* out_u, float* out_v, int* out_i,
+                                   const int* perm, int n, int n_tris,
+                                   int chunk, uint8_t* out_hit, int* out_i,
+                                   float* out_t, float* out_u, float* out_v,
                                    void* stream) {
   if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const int blocks = (n + kThreads - 1) / kThreads;
   intersect_dense_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      ro, rd, t_lower, alive, tris, boxes, n, n_tris, chunk, out_t, out_u,
-      out_v, out_i);
+      ro, rd, t_lower, alive, tris, boxes, perm, n, n_tris, chunk, out_hit,
+      out_i, out_t, out_u, out_v);
   return (int)cudaGetLastError();
 }

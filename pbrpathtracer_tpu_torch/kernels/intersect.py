@@ -9,7 +9,10 @@ lane is a clean miss (hit False, idx = t = u = v = 0); ties go to the lowest
 triangle id (in ``perm`` order when a permutation is given).
 
 Tensors on the CPU take the plain version; CUDA tensors launch the kernel.
-The wrapper refuses scenes of more than ``MAX_DENSE_CHUNKS`` chunks (2048
+What the kernel reads of the scene (the ``perm``-ordered triangle rows and
+the chunk boxes) is built once per geometry and cached on it, and the kernel
+writes the final outputs, so a query on the card is five ``torch.empty`` and
+one launch. The wrapper refuses scenes of more than ``MAX_DENSE_CHUNKS`` chunks (2048
 triangles): those take the BVH kernel (``kernels/intersect_list.py``), as the
 JAX wrapper routes them to its candidate-list kernel.
 """
@@ -40,27 +43,44 @@ def dense_chunks(n_tris: int) -> int:
     return _chunking(n_tris)[1]
 
 
-def check_query(geom, ro, rd, t_lower, alive):
-    """Shapes, types, devices and layout of a closest-hit query."""
-    N = ro.shape[0]
-    if ro.shape != (N, 3) or rd.shape != (N, 3):
-        raise ValueError(f"ro/rd must be [N, 3], got {tuple(ro.shape)} "
-                         f"and {tuple(rd.shape)}")
-    if t_lower.shape != (N,) or alive.shape != (N,):
-        raise ValueError("t_lower and alive must be [N]")
-    for name, x, dtype in (("ro", ro, torch.float32),
-                           ("rd", rd, torch.float32),
-                           ("t_lower", t_lower, torch.float32),
-                           ("alive", alive, torch.bool),
-                           ("geom.v0", geom.v0, torch.float32),
-                           ("geom.e1", geom.e1, torch.float32),
-                           ("geom.e2", geom.e2, torch.float32)):
+def _check_tensors(device, specs):
+    for name, x, dtype, shape in specs:
+        if x is None:
+            continue
+        if x.shape != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(x.shape)}")
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if x.device != ro.device:
-            raise ValueError(f"{name} is on {x.device}, rays on {ro.device}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, rays on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_rays(ro, rd, t_lower, alive):
+    """Shapes, types, devices and layout of a query's rays; ``t_lower`` and
+    ``alive`` may be None."""
+    N = ro.shape[0]
+    _check_tensors(ro.device, (("ro", ro, torch.float32, (N, 3)),
+                               ("rd", rd, torch.float32, (N, 3)),
+                               ("t_lower", t_lower, torch.float32, (N,)),
+                               ("alive", alive, torch.bool, (N,))))
+
+
+def check_scene(geom, perm, device):
+    """The same for the triangles and their order; ``perm`` may be None."""
+    T = geom.num_triangles
+    _check_tensors(device, (("perm", perm, torch.int32, (T,)),
+                            ("geom.v0", geom.v0, torch.float32, (T, 3)),
+                            ("geom.e1", geom.e1, torch.float32, (T, 3)),
+                            ("geom.e2", geom.e2, torch.float32, (T, 3))))
+
+
+def check_query(geom, ro, rd, t_lower, alive, perm=None):
+    """Everything a closest-hit query reads."""
+    check_rays(ro, rd, t_lower, alive)
+    check_scene(geom, perm, ro.device)
 
 
 def _permuted(geom: Geometry, perm):
@@ -103,44 +123,78 @@ def _tris_and_boxes(v0, e1, e2, chunk: int, n_chunks: int):
     return tris, torch.cat([lo, hi], dim=1).contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class _Prepared:
+    """What the kernel reads of a scene, built once per (geometry, perm)."""
+
+    tris: torch.Tensor    # f32[T, 9]: v0, e1, e2 of each row, in perm order
+    boxes: torch.Tensor   # f32[n_chunks, 6]: lo - EPS, hi + EPS per chunk
+    perm: torch.Tensor | None   # i32[T] contiguous: scene id of each row
+    chunk: int
+
+
+def _prepare(geom: Geometry, perm) -> _Prepared:
+    """The kernel's inputs for a scene, cached on its geometry under the
+    identity of ``perm``. A geometry made by ``dataclasses.replace`` or
+    ``.to`` is another object and is prepared afresh; in-place edits of
+    ``geom.v0/e1/e2`` (or of ``perm``) after a first query are not seen."""
+    cached = getattr(geom, "_k1_prepared", None)
+    if cached is not None and cached[0] is perm:
+        return cached[1]
+    check_scene(geom, perm, geom.v0.device)
+    chunk, n_chunks = _chunking(geom.num_triangles)
+    tris, boxes = _tris_and_boxes(*_permuted(geom, perm), chunk, n_chunks)
+    prep = _Prepared(tris=tris, boxes=boxes, chunk=chunk, perm=perm)
+    object.__setattr__(geom, "_k1_prepared", (perm, prep))
+    return prep
+
+
 def intersect_dense(geom: Geometry, ro, rd, t_lower=None, alive=None,
                     perm=None):
     """Closest-hit query through the dense kernel (CUDA tensors) or its
-    plain version (CPU tensors)."""
+    plain version (CPU tensors). ``t_lower=None`` means no lower bound and
+    ``alive=None`` all lanes alive; ``perm`` i32[T] orders the triangles
+    (row r of the kernel is scene triangle ``perm[r]``). On the card the
+    triangle rows are built at a geometry's first query and cached on it:
+    change a scene with ``dataclasses.replace``, not in place."""
     N = ro.shape[0]
-    if t_lower is None:
-        t_lower = torch.zeros(N, dtype=torch.float32, device=ro.device)
-    if alive is None:
-        alive = torch.ones(N, dtype=torch.bool, device=ro.device)
-    check_query(geom, ro, rd, t_lower, alive)
     if dense_chunks(geom.num_triangles) > MAX_DENSE_CHUNKS:
         raise NotImplementedError(
             f"{geom.num_triangles} triangles: the dense kernel takes at most "
             f"{MAX_DENSE_CHUNKS * MAX_CHUNK}; larger scenes take "
             "kernels.intersect_list.intersect_list")
     if ro.device.type == "cpu":
+        check_query(geom, ro, rd, t_lower, alive, perm)
+        if t_lower is None:
+            t_lower = torch.zeros(N, dtype=torch.float32)
+        if alive is None:
+            alive = torch.ones(N, dtype=torch.bool)
         return intersect_dense_plain(geom, ro, rd, t_lower, alive, perm)
     if ro.device.type != "cuda":
         raise ValueError(f"no intersect kernel for device {ro.device}")
 
-    T = geom.num_triangles
-    chunk, n_chunks = _chunking(T)
-    tris, boxes = _tris_and_boxes(*_permuted(geom, perm), chunk, n_chunks)
-    out_t = torch.empty(N, dtype=torch.float32, device=ro.device)
-    out_u = torch.empty_like(out_t)
-    out_v = torch.empty_like(out_t)
-    out_i = torch.empty(N, dtype=torch.int32, device=ro.device)
+    # the scene is checked where its rows are built, once per geometry
+    check_rays(ro, rd, t_lower, alive)
+    prep = _prepare(geom, perm)
+    if prep.tris.device != ro.device:
+        raise ValueError(f"scene on {prep.tris.device}, rays on {ro.device}")
+    hit = torch.empty(N, dtype=torch.bool, device=ro.device)
+    idx = torch.empty(N, dtype=torch.int32, device=ro.device)
+    t = torch.empty(N, dtype=torch.float32, device=ro.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
     err = native.load().pbr_intersect_dense(
-        ro.data_ptr(), rd.data_ptr(), t_lower.data_ptr(), alive.data_ptr(),
-        tris.data_ptr(), boxes.data_ptr(), N, T, chunk,
-        out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(ro.device).cuda_stream)
+        ro.data_ptr(), rd.data_ptr(), ptr(t_lower), ptr(alive),
+        prep.tris.data_ptr(), prep.boxes.data_ptr(), ptr(prep.perm), N,
+        geom.num_triangles, prep.chunk, hit.data_ptr(), idx.data_ptr(),
+        t.data_ptr(), u.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream(ro.device).cuda_stream)
     native.check(err, "intersect_dense")
     intersect_dense.launches += 1
-    hit = out_t < BIG
-    idx = out_i if perm is None else perm[out_i.long()]
-    return (hit, torch.where(hit, idx, 0), torch.where(hit, out_t, 0.0),
-            out_u, out_v)
+    return hit, idx, t, u, v
 
 
 intersect_dense.launches = 0

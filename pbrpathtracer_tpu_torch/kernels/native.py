@@ -34,18 +34,19 @@ _lib = None
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    # ro, rd, t_lower, alive, tris, boxes, n, n_tris, chunk,
-    # out_t, out_u, out_v, out_i, stream
-    "pbr_intersect_dense": [_p, _p, _p, _p, _p, _p, _i, _i, _i,
-                            _p, _p, _p, _p, _p],
+    # ro, rd, t_lower, alive, tris, boxes, perm, n, n_tris, chunk,
+    # out_hit, out_i, out_t, out_u, out_v, stream
+    "pbr_intersect_dense": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                            _p, _p, _p, _p, _p, _p],
     # ro, rd, t_lower, alive, nodes, links, tris, pos, perm, n, n_nodes,
     # out_hit, out_i, out_t, out_u, out_v, stream
     "pbr_intersect_bvh": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
                           _p, _p, _p, _p, _p, _p],
     # idx, table, n, n_rows, width, out, stream
     "pbr_packgather_fwd": [_p, _p, _i, _i, _i, _p, _p],
-    # idx, cot, n, n_rows, width, lanes_per_block, partial, out, stream
-    "pbr_packgather_bwd": [_p, _p, _i, _i, _i, _i, _p, _p, _p],
+    # idx, cot, n, n_rows, width, sort_tile, chunk, passes, scratch_i,
+    # scratch_d, out, stream
+    "pbr_packgather_bwd": [_p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p],
 }
 
 

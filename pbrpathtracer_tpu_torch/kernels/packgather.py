@@ -10,20 +10,56 @@ summed per id, out-of-range ids dropped; ``idx`` gets none. Unlike the TPU
 kernels these take a table of any height.
 
 Tensors on the CPU take the plain versions; CUDA tensors launch the kernels.
-The backward kernel is deterministic (no atomics): the same inputs give the
-same bits on every call.
+The backward kernel orders the lanes by id (a stable radix sort written for
+it) and sums each id's run in double, in an order that the ids alone
+decide: no float atomics, so the same inputs give the same bits on every
+call, and its work and scratch do not grow with the table's height.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import native
 
-# Lanes per block of the backward's first pass, at least; fewer blocks when
-# their f64 partial tables would outgrow PARTIAL_BYTES.
-BWD_LANES_PER_BLOCK = 1024
-PARTIAL_BYTES = 32 * 1024 * 1024
+# The backward kernel's constants (csrc/packgather.cu checks them): lanes per
+# block of a sort pass, sorted lanes per block of the reduction, bits per
+# radix digit.
+BWD_SORT_TILE = 2048
+BWD_CHUNK = 512
+BWD_RADIX_BITS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch plan of the backward kernel for N lanes into T rows of W."""
+
+    passes: int         # radix passes: 8-bit digits of the keys 0..T
+    sort_blocks: int    # blocks of a sort pass
+    chunks: int         # blocks of the reduction, one (A, B) record pair each
+    scratch_ints: int   # two (key, lane) buffers, histograms and digit
+                        # totals, record rows
+    scratch_doubles: int  # the records, f64[chunks, 2, W]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_ints + 8 * self.scratch_doubles
+
+
+def bwd_plan(n: int, n_rows: int, width: int) -> BwdPlan:
+    """Sizes of the backward kernel's launches and scratch. The keys are the
+    ids 0..T-1 and T (every dropped id), so T decides the passes and nothing
+    else: the scratch is 16 N + N W / 32 bytes and change, whatever T."""
+    passes = max(1, -(-max(n_rows, 1).bit_length() // BWD_RADIX_BITS))
+    sort_blocks = -(-n // BWD_SORT_TILE)
+    chunks = -(-n // BWD_CHUNK)
+    return BwdPlan(
+        passes=passes, sort_blocks=sort_blocks, chunks=chunks,
+        scratch_ints=(4 * n + (1 << BWD_RADIX_BITS) * (sort_blocks + 1)
+                      + chunks),
+        scratch_doubles=2 * chunks * width)
 
 
 def _check_inputs(table, idx):
@@ -102,16 +138,16 @@ def gather_rows_t_bwd(idx, cot, n_rows: int):
         return gather_rows_t_bwd_plain(idx, cot, n_rows)
     stream = _device_stream(idx)
     W, N = cot.shape
-    row_bytes = n_rows * W * 8
-    max_blocks = max(1, PARTIAL_BYTES // max(row_bytes, 1))
-    lanes = max(BWD_LANES_PER_BLOCK, -(-N // max_blocks))
-    n_blocks = -(-N // lanes)
-    partial = torch.empty(max(n_blocks * n_rows * W, 1), dtype=torch.float64,
-                          device=idx.device)
+    plan = bwd_plan(N, n_rows, W)
+    scratch_i = torch.empty(plan.scratch_ints, dtype=torch.int32,
+                            device=idx.device)
+    scratch_d = torch.empty(plan.scratch_doubles, dtype=torch.float64,
+                            device=idx.device)
     out = torch.empty((n_rows, W), dtype=torch.float32, device=idx.device)
     err = native.load().pbr_packgather_bwd(
-        idx.data_ptr(), cot.data_ptr(), N, n_rows, W, lanes,
-        partial.data_ptr(), out.data_ptr(), stream)
+        idx.data_ptr(), cot.data_ptr(), N, n_rows, W, BWD_SORT_TILE,
+        BWD_CHUNK, plan.passes, scratch_i.data_ptr(), scratch_d.data_ptr(),
+        out.data_ptr(), stream)
     native.check(err, "gather_rows_t_bwd")
     gather_rows_t_bwd.launches += 1
     return out

@@ -14,6 +14,7 @@ plumbing around it, against the JAX package:
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,9 +72,18 @@ def test_builders_match_jax(builder, n):
 
 
 def test_native_builder_is_built_from_the_jax_source():
-    assert native.SRC.endswith("pbrpathtracer_tpu/accel/cpp/bvh_builder.cpp")
+    """The port compiles its own copy of the JAX package's C++ BVH source,
+    inside its package; the two files are byte-equal, so they cannot drift."""
+    from pbrpathtracer_tpu.accel import native as j_native
+    assert native.SRC.startswith(native._PKG)
+    assert native.SRC.endswith("csrc/bvh_builder.cpp")
     assert native.LIB_PATH.startswith(
         native._PKG) and "_build" in native.LIB_PATH
+    j_src = os.path.join(os.path.dirname(os.path.abspath(j_native.__file__)),
+                         "cpp", "bvh_builder.cpp")
+    assert os.path.realpath(j_src) != os.path.realpath(native.SRC)
+    with open(j_src, "rb") as a, open(native.SRC, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_native_build_failure_raises(monkeypatch, tmp_path):

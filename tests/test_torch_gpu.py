@@ -88,6 +88,44 @@ def test_intersect_kernel_edge_cases(dev):
     assert out[1][0].item() == 0   # tie between rows 0 and 1 -> row 0
 
 
+@pytest.mark.parametrize("with_perm", [False, True])
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_spheres_scene"])
+def test_intersect_kernel_optional_inputs_and_perm(dev, name, with_perm):
+    """t_lower=None and alive=None reach the kernel as null pointers; the
+    kernel maps the winner through ``perm`` itself."""
+    geom = getattr(builders, name)().to(dev).geom
+    ro, rd, t_lower, alive = _rays(7, 20_001, dev)
+    perm = torch.tensor(np.random.RandomState(3).permutation(
+        geom.num_triangles), dtype=torch.int32, device=dev) \
+        if with_perm else None
+    zeros, ones = torch.zeros_like(t_lower), torch.ones_like(alive)
+    _assert_same(KI.intersect_dense(geom, ro, rd, perm=perm),
+                 KI.intersect_dense_plain(geom, ro, rd, zeros, ones, perm))
+    _assert_same(KI.intersect_dense(geom, ro, rd, t_lower, None, perm=perm),
+                 KI.intersect_dense_plain(geom, ro, rd, t_lower, ones, perm))
+    out = KI.intersect_dense(geom, ro, rd, t_lower, alive, perm=perm)
+    _assert_same(out, KI.intersect_dense_plain(geom, ro, rd, t_lower, alive,
+                                               perm))
+    for x in out[1:]:
+        assert not x[~out[0]].any()
+
+
+def test_intersect_kernel_prepares_once_per_geometry(dev):
+    """A second scene queried between two queries of the first: each
+    geometry keeps its own rows, and one query is one launch."""
+    a = builders.cornell_box().to(dev).geom
+    b = builders.cornell_spheres_scene().to(dev).geom
+    rays = _rays(8, 4096, dev)
+    first = KI.intersect_dense(a, *rays)
+    prep = a._k1_prepared[1]
+    _assert_same(KI.intersect_dense(b, *rays),
+                 KI.intersect_dense_plain(b, *rays))
+    before = KI.intersect_dense.launches
+    _assert_same(KI.intersect_dense(a, *rays), first)
+    assert KI.intersect_dense.launches == before + 1
+    assert a._k1_prepared[1] is prep and b._k1_prepared[1] is not prep
+
+
 @pytest.mark.parametrize("T,W,N", [(36, 55, 262_144), (2, 13, 1000),
                                    (588, 55, 100_000), (1000, 55, 77),
                                    (256, 7, 0), (49_970, 55, 262_144),
@@ -132,10 +170,14 @@ def test_render_goes_through_the_kernels_only(dev):
 
 @pytest.mark.parametrize("T,W,N", [(36, 55, 262_144), (2, 13, 1000),
                                    (588, 55, 100_000), (1000, 7, 77),
-                                   (36, 55, 0)])
+                                   (36, 55, 0), (1, 55, 5000),
+                                   (255, 13, 2049), (256, 7, 513),
+                                   (49_970, 55, 262_144),
+                                   (65_536, 7, 300_000),
+                                   (999_956, 55, 262_139)])
 def test_packgather_bwd_kernel_matches_plain(dev, T, W, N):
-    """Small and tall tables (several shared-memory row tiles), out-of-range
-    ids, and bit-identical repeats."""
+    """Tables of one, two and three radix passes, lane counts that no block
+    size divides, out-of-range ids, and bit-identical repeats."""
     rs = np.random.RandomState(T + N)
     idx = torch.tensor(rs.randint(-2, T + 2, N), dtype=torch.int32,
                        device=dev)
@@ -149,6 +191,38 @@ def test_packgather_bwd_kernel_matches_plain(dev, T, W, N):
     torch.testing.assert_close(out.double(), ref, rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(KP.gather_rows_t_bwd_plain(idx, cot, T), out,
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["one_row", "all_out", "heavy_row0",
+                                  "sorted", "runs"])
+@pytest.mark.parametrize("T,N", [(1, 70_001), (36, 262_144),
+                                 (49_970, 262_139)])
+def test_packgather_bwd_kernel_on_skewed_ids(dev, kind, T, N):
+    """Rows that own every lane, half the lanes or none; coherent runs that
+    span the kernel's chunks."""
+    rs = np.random.RandomState(N + T)
+    if kind == "one_row":
+        idx = np.full(N, T // 2)
+    elif kind == "all_out":
+        idx = rs.choice([-1, T, T + 3], N)
+    elif kind == "heavy_row0":
+        idx = np.where(rs.uniform(size=N) < 0.5, 0, rs.randint(0, T, N))
+    elif kind == "sorted":
+        idx = np.sort(rs.randint(-1, T + 1, N))
+    else:
+        idx = np.repeat(rs.randint(0, T, N // 700 + 1), 700)[:N]
+    W = 55
+    idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+    cot = torch.tensor(rs.randn(W, N), dtype=torch.float32, device=dev)
+    out = KP.gather_rows_t_bwd(idx, cot, T)
+    assert torch.equal(out, KP.gather_rows_t_bwd(idx, cot, T))
+    ok = (idx >= 0) & (idx < T)
+    ref = torch.zeros((T, W), dtype=torch.float64, device=dev).index_add_(
+        0, idx[ok].long(), cot.double().T[ok])
+    torch.testing.assert_close(out.double(), ref, rtol=1e-6, atol=1e-5)
+    touched = torch.zeros(T, dtype=torch.bool, device=dev)
+    touched[idx[ok].long()] = True
+    assert not out[~touched].any()
 
 
 def test_cuda_backward_never_reaches_the_plain_version(dev, monkeypatch):

@@ -177,3 +177,89 @@ def test_scenes_over_2048_triangles_raise():
     ro, rd, t_lower, alive = (torch.tensor(x) for x in _rays(5, 16))
     with pytest.raises(NotImplementedError):
         K.intersect_dense(big, ro, rd, t_lower, alive)
+
+
+# ---- the kernel's per-geometry set-up (runs on CPU tensors too) -------------
+
+def _old_setup(geom, perm):
+    """The rows and boxes as the wrapper built them on every query before
+    the set-up was hoisted: the perm-ordered (v0, e1, e2) rows and the
+    EPS-inflated (lo, hi) box of each chunk."""
+    p = slice(None) if perm is None else perm.long()
+    v0, e1, e2 = geom.v0[p], geom.e1[p], geom.e2[p]
+    T = v0.shape[0]
+    chunk = min(512, max(8, (T + 7) // 8 * 8))
+    n_chunks = (T + chunk - 1) // chunk
+    corners = torch.stack([v0, v0 + e1, v0 + e2])
+    boxes = []
+    for c in range(n_chunks):
+        block = corners[:, c * chunk:(c + 1) * chunk].reshape(-1, 3)
+        boxes.append(torch.cat([block.amin(dim=0) - 1e-5,
+                                block.amax(dim=0) + 1e-5]))
+    return torch.cat([v0, e1, e2], dim=1), torch.stack(boxes), chunk
+
+
+@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_prepare_builds_the_rows_and_boxes_once(name, with_perm):
+    ps, _ = from_reference(getattr(jb, name)())
+    perm = torch.tensor(np.random.RandomState(1).permutation(
+        ps.num_triangles).astype(np.int32)) if with_perm else None
+    prep = K._prepare(ps.geom, perm)
+    tris, boxes, chunk = _old_setup(ps.geom, perm)
+    assert prep.chunk == chunk == K._chunking(ps.num_triangles)[0]
+    assert prep.tris.shape == (ps.num_triangles, 9)
+    assert prep.boxes.shape == (K.dense_chunks(ps.num_triangles), 6)
+    assert prep.tris.is_contiguous() and prep.boxes.is_contiguous()
+    torch.testing.assert_close(prep.tris, tris, rtol=0, atol=0)
+    torch.testing.assert_close(prep.boxes, boxes, rtol=0, atol=0)
+    if with_perm:
+        assert prep.perm.is_contiguous() and torch.equal(prep.perm, perm)
+    else:
+        assert prep.perm is None
+    # a second query of the same (geometry, perm) finds the same object
+    assert K._prepare(ps.geom, perm) is prep
+
+
+def test_prepare_is_keyed_by_the_perm_and_by_the_geometry():
+    ps, _ = from_reference(jb.cornell_box())
+    T = ps.num_triangles
+    perm_a = torch.arange(T, dtype=torch.int32).flip(0).contiguous()
+    perm_b = perm_a.clone()
+    none = K._prepare(ps.geom, None)
+    a = K._prepare(ps.geom, perm_a)
+    assert a is not none and torch.equal(a.tris, none.tris.flip(0))
+    assert K._prepare(ps.geom, perm_a) is a
+    # an equal perm that is another tensor is prepared afresh
+    b = K._prepare(ps.geom, perm_b)
+    assert b is not a and torch.equal(b.tris, a.tris)
+    # a replaced geometry gets none of the first one's cache
+    moved = dataclasses.replace(ps.geom, v0=ps.geom.v0 + 1.0)
+    assert getattr(moved, "_k1_prepared", None) is None
+    m = K._prepare(moved, perm_b)
+    assert m is not b
+    torch.testing.assert_close(m.tris[:, :3], b.tris[:, :3] + 1.0, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(m.boxes, b.boxes + 1.0, rtol=0, atol=2e-6)
+    assert K._prepare(ps.geom, perm_b) is b
+
+
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_optional_t_lower_and_alive(with_perm):
+    """None means no lower bound and every lane alive."""
+    ps, _ = from_reference(jb.cornell_box())
+    ro, rd, _, _ = (torch.tensor(x) for x in _rays(6, 512))
+    perm = torch.tensor(np.random.RandomState(2).permutation(
+        ps.num_triangles).astype(np.int32)) if with_perm else None
+    got = K.intersect_dense(ps.geom, ro, rd, perm=perm)
+    ref = K.intersect_dense(ps.geom, ro, rd, torch.zeros(512),
+                            torch.ones(512, dtype=torch.bool), perm=perm)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    with pytest.raises(TypeError):
+        K.intersect_dense(ps.geom, ro, rd, perm=perm.long() if with_perm
+                          else torch.zeros(ps.num_triangles))
+    with pytest.raises(ValueError):
+        K.intersect_dense(ps.geom, ro, rd, perm=torch.zeros(
+            3, dtype=torch.int32))

@@ -174,3 +174,71 @@ def test_wrapper_rejects_bad_inputs():
         K.gather_rows_t_bwd(idx, cot[:, :10], 36)
     with pytest.raises(ValueError):
         K.gather_rows_t_bwd(idx, cot.T.contiguous().T, 36)
+
+
+# ---- the backward kernel's host-side plan and the skewed id cases ------------
+
+@pytest.mark.parametrize("T,passes", [(1, 1), (2, 1), (36, 1), (255, 1),
+                                      (256, 2), (588, 2), (49_970, 2),
+                                      (65_535, 2), (65_536, 3),
+                                      (999_956, 3)])
+def test_bwd_plan_passes_follow_the_bits_of_T(T, passes):
+    """The sort keys are 0..T (T: every dropped id), in 8-bit digits."""
+    plan = K.bwd_plan(262_144, T, 55)
+    assert plan.passes == passes
+    assert T < 1 << (8 * passes)
+    assert passes == 1 or T >= 1 << (8 * (passes - 1))
+
+
+@pytest.mark.parametrize("T", [1, 2, 36, 588, 49_970, 999_956])
+@pytest.mark.parametrize("N,W", [(262_144, 55), (262_139, 55), (1000, 13),
+                                 (0, 7)])
+def test_bwd_plan_scratch_does_not_grow_with_T(T, N, W):
+    plan = K.bwd_plan(N, T, W)
+    assert plan.sort_blocks == -(-N // K.BWD_SORT_TILE)
+    assert plan.chunks == -(-N // K.BWD_CHUNK)
+    assert plan.scratch_ints == (4 * N + 256 * (plan.sort_blocks + 1)
+                                 + plan.chunks)
+    assert plan.scratch_doubles == 2 * plan.chunks * W
+    assert plan.scratch_bytes == K.bwd_plan(N, 36, W).scratch_bytes
+    # O(N W) bytes: under the cotangent's own size plus 17 bytes a lane
+    assert plan.scratch_bytes <= 4 * N * W + 17 * N + 8 * 2 * W + 2048
+    if N == 262_144 and W == 55:
+        assert plan.scratch_bytes < 5 * 2 ** 20
+
+
+def _skewed_ids(kind, T, N):
+    rs = np.random.RandomState(11)
+    if kind == "one_row":
+        return np.full(N, T // 2, np.int32)
+    if kind == "all_out":
+        return np.where(rs.uniform(size=N) < 0.5, -1, T + 3).astype(np.int32)
+    if kind == "heavy_row0":    # coherent runs, half the lanes on row 0
+        runs = np.repeat(rs.randint(0, T, N // 16 + 1), 16)[:N]
+        return np.where(rs.uniform(size=N) < 0.5, 0, runs).astype(np.int32)
+    if kind == "sorted":
+        return np.sort(rs.randint(-1, T + 1, N)).astype(np.int32)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["one_row", "all_out", "heavy_row0",
+                                  "sorted"])
+@pytest.mark.parametrize("T,W,N", [(1, 7, 3001), (2, 13, 4099),
+                                   (36, 55, 8191), (49_970, 55, 4001)])
+def test_backward_plain_on_skewed_ids(kind, T, W, N):
+    """The plain version against an f64 numpy sum. It adds in float32, one
+    lane after the other, so a row that collects all 8,191 unit-normal
+    cotangents (a partial sum of ~100) is off by up to ~1e-3; the CUDA
+    kernel sums in double and is held to rtol 1e-6, atol 1e-5 on the card."""
+    idx = _skewed_ids(kind, T, N)
+    cot = np.random.RandomState(N).randn(W, N).astype(np.float32)
+    ref = np.zeros((T, W), np.float64)
+    ok = (idx >= 0) & (idx < T)
+    np.add.at(ref, idx[ok], cot.astype(np.float64).T[ok])
+    out = K.gather_rows_t_bwd(torch.tensor(idx), torch.tensor(cot), T)
+    assert out.shape == (T, W) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=2e-3)
+    if kind == "all_out":
+        assert not out.any()
+    untouched = np.setdiff1d(np.arange(T), idx[ok])
+    assert not out.numpy()[untouched].any()
