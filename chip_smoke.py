@@ -57,15 +57,26 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                bit-identical).
 12. big scenes -- ``mesh_scene`` at 50k, 200k and 1M triangles built on the
                host with their BVHs (times printed).
-13. K4      -- the BVH closest-hit kernel against its plain torch version
-               (K1's tolerance): the 50k scene with the 262,144 flagship
-               primary rays of ``mesh_scene_camera`` and with random rays
-               (random t_lower, 20% dead), a flat plane under a flat quad
-               (no BVH of its own: the kernel's private one; down rays,
-               a t_lower re-trace, rays parallel to the planes), and the 1M
-               scene on 16,384 rays. Then K2 against its plain version
-               (bit-equal) at the 50k and 1M tri packs, on the 512^2
-               primary hit ids and on random ids with out-of-range ones.
+13. K4      -- the BVH closest-hit kernel against its plain torch version,
+               bit for bit (0 hit/idx mismatches, |dt| = |du| = |dv| = 0,
+               misses and dead lanes clean): the 50k scene with the 262,144
+               primary rays of ``mesh_scene_camera``, with random rays
+               (random t_lower, 20% dead), with half the primary lanes dead
+               and re-traced past the first hit (t_lower = its t); a
+               3,000-triangle ``mesh_scene`` and a flat plane under a flat
+               quad, neither with a BVH of its own (the kernel's private
+               one; on the plane down rays, a t_lower re-trace, rays
+               parallel to the planes); the 1M scene on 16,384 random and
+               16,384 primary rays and on the 512^2 primary rays (every
+               lane against ``walk_plain``, the kernel's walk in plain
+               torch, counts included; every 16th lane against the brute
+               force, which would take a minute on all of them). The
+               counting twin must return the kernel's outputs bit for bit;
+               its node records and triangles per ray are printed for
+               primary and random rays of both scenes. Then K2 against its
+               plain version (bit-equal) at the 50k and 1M tri packs, on
+               the 512^2 primary hit ids and on random ids with
+               out-of-range ones.
 14. rung 3  -- BASELINE config 3 at spec on the 50k scene: the 512x512,
                depth 3, 64 spp forward (finite, max > 0.05, timed); the 512^2
                ``grad_render(materials=False, textures=True)`` (finite,
@@ -77,7 +88,12 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                ``tests/goldens`` by ``utils.goldens.compare``.
 16. 1M      -- ``million_tri_scene``, 512x512 depth 3 1 spp forward: finite,
                timed, peak device memory.
-17. timing  -- K4 per query beside its plain version, the 50k render per spp
+17. timing  -- K4 per query, two readings a round apart, on the
+               50k scene (262,144 primary rays, the row's shape; random
+               rays) and on the 1M scene (16,384 and 262,144 primary rays,
+               random rays; the plain version's time is phase 13's); the
+               seconds its set-up takes per scene (the
+               wide tree and the rows); the 50k render per spp
                without and with compaction ("off"/"scan" and "sort"/"block",
                in turns), K2 at the 50k and 1M tri packs and K3 at the 50k
                tri pack, each beside its plain version. K2 also beside
@@ -85,15 +101,18 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                512^2 primary hit ids and on random ids against f64, the edge
                cases on the 50k-row table, its scratch at the 1M pack, and
                its time beside its plain version and one ``index_add_`` (K3
-               must not be the slower at the 50k pack). K4's bound.
+               must not be the slower at the 50k pack). K4's bound (the
+               least walk) and, beside it, the time the counted walk would
+               take at the card's peaks.
 18. launches -- after every timing: one K1 query is one kernel launch and
                dispatches no ATen operator but its allocations (counted
                by a ``TorchDispatchMode``). Then, by ``torch.profiler``, for
                the record (the profiler may deliver no device events; then
                the line says so): the K1 kernel's own time beside the
                wrapper's, K3's device time by kernel at the Cornell and 50k
-               packs, and the device kernels of one flagship render and of
-               one 512^2 material gradient of the 50k scene with K3's share.
+               packs, and the device kernels of one flagship render, of one
+               512^2 render of the 50k scene with K4's share, and of one
+               512^2 material gradient of that scene with K3's share.
 Every large-scene run (phases 14-16) is driven with the launch counters at 0
 and must launch K4, never K1 (``intersect_dense``) and no plain version.
 
@@ -118,20 +137,23 @@ sys.path.insert(0, REPO)
 N_RAYS = 262_144
 CAM_POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1.0),
                 up=(0.0, 1.0, 0.0), fovy=61.0)
-K1_TOL = 1e-5
 # BASELINE config 3 at spec (benchmarks/ladder.py's rung 3): 512^2, 64 spp;
 # K4's 1M-triangle case on a 128^2 image, its flat-plane case on 65,536 rays.
 RUNG3_SIZE = 512
 RUNG3_SPP = 64
 MILLION_RAYS = 16_384
 PLANE_RAYS = 65_536
+# Every how-manyth of the 1M scene's 512^2 primary rays meets the brute force
+MILLION_STRIDE = 16
 K3_RTOL, K3_ATOL = 1e-6, 1e-5
 # Published peaks of the H100 SXM, for the kernels' bounds: device memory
 # 3.35 TB/s; 67 T FP32 operations a second outside the tensor cores. A
-# Möller-Trumbore pair test is 47 FP32 operations, a slab test 27.
+# Möller-Trumbore pair test is 47 FP32 operations, a slab test 27. K4 reads
+# a node as one 128-byte record of four boxes and a triangle as a 48-byte row.
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 PAIR_OPS, SLAB_OPS = 47, 27
+K4_RECORD_BYTES, K4_ROW_BYTES, K4_WIDTH = 128, 48, 4
 
 
 def require(cond, msg):
@@ -456,7 +478,7 @@ def texture_grad_phase(camera, dev):
     from pbrpathtracer_tpu_torch.scene.scene import (finalize_scene,
                                                      pack_textures)
     from pbrpathtracer_tpu_torch.utils.constants import TEX_DIFFUSE
-    base = builders.cornell_box()
+    base = builders.cornell_box(device="cpu")   # edited on the host
     tex_index = base.materials.tex_index.clone()
     tex_index[:, TEX_DIFFUSE] = 0
     image = np.random.RandomState(0).uniform(size=(64, 64, 4))
@@ -515,33 +537,76 @@ def large_run(what, fn):
     return out, counts
 
 
-def compare_k4(name, scene, ro, rd, t_lower, alive):
-    """K4 against its plain version at K1's tolerance; returns the max
-    |dt, du, dv| where the winners agree."""
+def compare_k4(name, scene, ro, rd, t_lower, alive, stride=1):
+    """K4 against its plain version, bit for bit: no hit/idx mismatch,
+    max |dt, du, dv| = 0, misses and dead lanes clean. With ``stride`` the
+    kernel runs on every lane and every ``stride``-th meets the plain
+    version. Returns (the max error, the kernel's hit, idx, t, the plain
+    version's milliseconds by CUDA events)."""
     import torch
     from pbrpathtracer_tpu_torch.kernels.intersect_list import (
         intersect_list, intersect_list_plain)
     accel = scene.accel
-    kh, ki, kt, ku, kv = intersect_list(scene.geom, ro, rd, t_lower, alive,
-                                        accel=accel)
+    full = intersect_list(scene.geom, ro, rd, t_lower, alive, accel=accel)
+    kh, ki, kt, ku, kv = (x[::stride] for x in full)
+    plain_in = [x[::stride].contiguous() for x in (ro, rd, t_lower, alive)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     ph, pi, pt, pu, pv = intersect_list_plain(
-        scene.geom, ro, rd, t_lower, alive,
-        None if accel is None else accel.perm)
+        scene.geom, *plain_in, None if accel is None else accel.perm)
+    end.record()
     torch.cuda.synchronize()
-    mism = (kh != ph) | (ki != pi)
-    n_mism = int(mism.sum())
-    agree = ~mism
-    err = max(float((a - b)[agree].abs().max()) if bool(agree.any())
-              else 0.0 for a, b in ((kt, pt), (ku, pu), (kv, pv)))
-    dead_ok = bool((~kh[~alive]).all() and (ki[~alive] == 0).all()
-                   and (kt[~alive] == 0).all())
+    n_mism = int(((kh != ph) | (ki != pi)).sum())
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0
+              for a, b in ((kt, pt), (ku, pu), (kv, pv)))
+    fh = full[0]
+    clean = bool((~fh[~alive]).all()) and all(
+        bool((x[~fh] == 0).all()) for x in full[1:])
     print(f"K4 {name}: T={scene.num_triangles} lanes={ro.shape[0]} "
-          f"hits={int(kh.sum())} hit/idx mismatches={n_mism} "
-          f"max|dt,du,dv|={err:.3g} dead-lanes-clean={dead_ok}", flush=True)
-    require(n_mism <= K1_TOL * ro.shape[0], f"K4 {name}: {n_mism} mismatches")
-    require(err <= K1_TOL, f"K4 {name}: max error {err}")
-    require(dead_ok, f"K4 {name}: dead lanes not a clean miss")
-    return err, (kh, ki, kt)
+          f"compared={kh.shape[0]} hits={int(fh.sum())} "
+          f"hit/idx mismatches={n_mism} max|dt,du,dv|={err:.3g} "
+          f"misses-and-dead-lanes-clean={clean}", flush=True)
+    require(n_mism == 0, f"K4 {name}: {n_mism} mismatches")
+    require(err == 0.0, f"K4 {name}: max error {err}")
+    require(clean, f"K4 {name}: a miss or a dead lane is not a clean miss")
+    return err, full[:3], start.elapsed_time(end)
+
+
+def k4_counts(name, scene, ro, rd, t_lower, alive, walk=False):
+    """The counting twin on one query: its five outputs must be the
+    kernel's bit for bit (and with ``walk`` everything, counts included,
+    ``walk_plain``'s). Prints and returns the node records read and the
+    triangles tested per live ray: (mean nodes, mean triangles)."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.intersect_list import (
+        _prepare, intersect_list, intersect_list_stats, walk_plain)
+    out = intersect_list(scene.geom, ro, rd, t_lower, alive,
+                         accel=scene.accel)
+    twin = intersect_list_stats(scene.geom, ro, rd, t_lower, alive,
+                                accel=scene.accel)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, twin))
+    require(same, f"K4 {name}: the counting twin differs from the kernel")
+    note = ""
+    if walk:
+        plain = walk_plain(_prepare(scene.geom, scene.accel), ro, rd,
+                           t_lower, alive)
+        torch.cuda.synchronize()
+        same_walk = all(torch.equal(a, b) for a, b in zip(twin, plain))
+        note = f" walk_plain-equal-with-counts={same_walk}"
+        require(same_walk, f"K4 {name}: walk_plain differs from the twin")
+
+    def spread(x):
+        x = torch.sort(x[alive].float())[0]
+        return (f"mean {float(x.mean()):.2f} p99 "
+                f"{int(x[int(0.99 * (x.numel() - 1))])} max {int(x[-1])}")
+    nodes, tris = twin[5], twin[6]
+    print(f"K4 counts {name}: {int(alive.sum())} live rays, twin-equal="
+          f"{same}{note} | node records per ray {spread(nodes)} | "
+          f"triangles per ray {spread(tris)}", flush=True)
+    return (float(nodes[alive].float().mean()),
+            float(tris[alive].float().mean()))
 
 
 def flat_plane_scene(n_side=37, quad=True):
@@ -588,20 +653,41 @@ def scene_rays(rs, n, device):
 
 
 def k4_phase(big, million, dev, rs):
-    """Phase 13; returns (max error, the primary rays and their hits)."""
+    """Phase 13; returns (max error, the primary rays and their hit ids,
+    the random rays of both scenes, the counts per ray, the plain version's
+    milliseconds on the 50k scene's primary rays)."""
     import numpy as np
     import torch
     from pbrpathtracer_tpu_torch.ops.camera import generate_rays
-    from pbrpathtracer_tpu_torch.scene.big_scenes import mesh_scene_camera
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                          mesh_scene_camera)
     cam = mesh_scene_camera().to(dev)
     ro, rd = generate_rays(cam, RUNG3_SIZE, RUNG3_SIZE, 0, 0)
     n = ro.shape[0]
-    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    zeros = torch.zeros(n, **f32)
     ones = torch.ones(n, dtype=torch.bool, device=dev)
-    err, (hit, idx, _) = compare_k4("50k/primary", big, ro, rd, zeros, ones)
+    err, (hit, idx, t), plain_ms = compare_k4("50k/primary", big, ro, rd,
+                                              zeros, ones)
     require(float(hit.float().mean()) > 0.3, "K4 50k/primary: too few hits")
-    err = max(err, compare_k4("50k/random", big,
-                              *scene_rays(rs, n, dev))[0])
+    rand50k = scene_rays(rs, n, dev)
+    half = torch.tensor(rs.uniform(size=n) < 0.5, device=dev)
+    err = max(err, compare_k4("50k/random", big, *rand50k)[0],
+              compare_k4("50k/primary, half the lanes dead", big, ro, rd,
+                         zeros, half)[0])
+    # past the first hit, as the opacity re-trace asks: the lanes that hit,
+    # with t_lower = their t
+    rerr, (rhit, _, rt), _ = compare_k4("50k/re-trace past the first hit",
+                                        big, ro, rd, t, hit)
+    require(bool((rt[rhit] > t[rhit]).all()) and not bool(rhit[~hit].any()),
+            "K4 50k/re-trace: a hit at or before t_lower")
+    err = max(err, rerr)
+
+    small = mesh_scene(3000)
+    require(small.accel is None and 2048 < small.num_triangles <= 4096,
+            "the small scene should have no BVH of its own")
+    err = max(err, compare_k4("3k, no BVH/random", small,
+                              *scene_rays(rs, PLANE_RAYS, dev))[0])
 
     plane = flat_plane_scene().to(dev)
     n = PLANE_RAYS
@@ -610,29 +696,40 @@ def k4_phase(big, million, dev, rs):
     prd = np.tile([[0.0, -1.0, 0.0]], (n, 1))
     pro[1::2, 1] = 1.0               # origins on the quad's plane
     prd[1::4] = [0.6, 0.0, 0.8]      # parallel to both planes
-    f32 = dict(dtype=torch.float32, device=dev)
     pro, prd = torch.tensor(pro, **f32), torch.tensor(prd, **f32)
     palive = torch.ones(n, dtype=torch.bool, device=dev)
-    perr, (ph, _, pt) = compare_k4("flat/first", plane, pro, prd,
-                                   torch.zeros(n, **f32), palive)
+    perr, (ph, _, pt), _ = compare_k4("flat/first", plane, pro, prd,
+                                      torch.zeros(n, **f32), palive)
     down = torch.arange(n, device=dev) % 2 == 0
     require(bool(ph[down].all()) and bool(
         ((pt[down] - 2.0).abs() < 1e-4).all()), "K4 flat: quad not hit")
-    perr2, (ph2, _, pt2) = compare_k4("flat/re-trace", plane, pro, prd, pt,
-                                      palive)
+    perr2, (_, _, pt2), _ = compare_k4("flat/re-trace", plane, pro, prd, pt,
+                                       palive)
     require(bool(((pt2[down] - 3.0).abs() < 1e-4).all()),
             "K4 flat: the re-trace missed the plane")
     err = max(err, perr, perr2)
 
+    rand1m = scene_rays(rs, N_RAYS, dev)
     err = max(err, compare_k4("1M/random", million,
-                              *scene_rays(rs, MILLION_RAYS, dev))[0])
+                              *(x[:MILLION_RAYS].contiguous()
+                                for x in rand1m))[0])
     side = int(round(MILLION_RAYS ** 0.5))
     mro, mrd = generate_rays(cam, side, side, 0, 0)
     m = side * side
-    err = max(err, compare_k4("1M/primary", million, mro, mrd,
-                              torch.zeros(m, **f32),
-                              torch.ones(m, dtype=torch.bool, device=dev))[0])
-    return err, ro, rd, zeros, ones, idx
+    err = max(err,
+              compare_k4("1M/primary", million, mro, mrd, zeros[:m],
+                         ones[:m])[0],
+              compare_k4(f"1M/primary {RUNG3_SIZE}x{RUNG3_SIZE}", million, ro,
+                         rd, zeros, ones, stride=MILLION_STRIDE)[0])
+
+    counts = {
+        "50k/primary": k4_counts("50k/primary", big, ro, rd, zeros, ones),
+        "50k/random": k4_counts("50k/random", big, *rand50k),
+        "1M/primary": k4_counts(f"1M/primary {RUNG3_SIZE}x{RUNG3_SIZE}",
+                                million, ro, rd, zeros, ones, walk=True),
+        "1M/random": k4_counts("1M/random", million, *rand1m),
+    }
+    return err, ro, rd, zeros, ones, idx, rand50k, rand1m, counts, plain_ms
 
 
 def rung3_phase(big, dev):
@@ -667,7 +764,7 @@ def rung3_phase(big, dev):
     gt = g["tex.data"]
     ok = bool(torch.isfinite(gt).all()) and float(gt.abs().max()) > 0
     tex_ms = cuda_ms(lambda: grad_render(big, cam, gcfg, zero, materials=False,
-                                         textures=True), 2)
+                                         textures=True), 1)
     tex_mb = peak_mb(lambda: grad_render(big, cam, gcfg, zero,
                                          materials=False, textures=True))
     print(f"rung 3 texture grad: {size}x{size} depth 3 spp 1 in {tex_s:.3f} s "
@@ -736,7 +833,7 @@ def large_scene_phases(dev, rs, smi_line):
     from pbrpathtracer_tpu_torch.utils.goldens import GOLDEN_DIR, compare
     # ---- 12. big scenes ----
     from pbrpathtracer_tpu_torch.kernels.intersect_list import (
-        intersect_list, intersect_list_plain)
+        _prepare, intersect_list)
     from pbrpathtracer_tpu_torch.scene.big_scenes import (
         mesh_scene, mesh_scene_camera, million_tri_scene)
     scenes = {}
@@ -744,18 +841,19 @@ def large_scene_phases(dev, rs, smi_line):
                        ("200k", lambda: mesh_scene(200_000, accel="always")),
                        ("1M", million_tri_scene)):
         t0 = time.time()
-        sc = make()
-        host_s = time.time() - t0
-        scenes[name] = sc.to(dev)
+        sc = scenes[name] = make()
+        torch.cuda.synchronize()
+        require(sc.device.type == "cuda", f"scene {name} is not on the card")
         print(f"scene {name}: {sc.num_triangles} triangles, "
-              f"{sc.accel.num_nodes} BVH nodes, built on the host in "
-              f"{host_s:.2f} s", flush=True)
+              f"{sc.accel.num_nodes} BVH nodes, built on the host and moved "
+              f"to the card in {time.time() - t0:.2f} s", flush=True)
     big, million = scenes["50k"], scenes["1M"]
     mcam = mesh_scene_camera().to(dev)
 
     # ---- 13. K4 vs plain, then K2 vs plain at the 50k and 1M tri packs
     # on the 512^2 primary hit ids and on random ids ----
-    k4_err, mro, mrd, mzeros, mones, midx = k4_phase(big, million, dev, rs)
+    (k4_err, mro, mrd, mzeros, mones, midx, rand50k, rand1m, k4_count,
+     k4_plain_ms) = k4_phase(big, million, dev, rs)
     pack50k = sp.build_tri_pack(big)
     pack1m = sp.build_tri_pack(million)
     idx1m = intersect_list(million.geom, mro, mrd, mzeros, mones,
@@ -806,22 +904,41 @@ def large_scene_phases(dev, rs, smi_line):
     require(finite and float(img.max()) > 0.05, "1M image is wrong")
 
     # ---- 17. timing ----
-    k4_ms = cuda_ms(lambda: intersect_list(big.geom, mro, mrd, mzeros, mones,
-                                           accel=big.accel), 20)
-    k4_plain_ms = cuda_ms(lambda: intersect_list_plain(
-        big.geom, mro, mrd, mzeros, mones, big.accel.perm), 1)
-    k4_ms_2 = cuda_ms(lambda: intersect_list(big.geom, mro, mrd, mzeros,
-                                             mones, accel=big.accel), 20)
+    def k4_time(scene, rays, reps=20):
+        return cuda_ms(lambda: intersect_list(scene.geom, *rays,
+                                              accel=scene.accel), reps)
+
+    def k4_setup_s(scene):
+        """Seconds to build K4's inputs afresh (a replaced geometry has no
+        cache): the wide tree on the host, the rows on the card."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _prepare(dataclasses.replace(scene.geom), scene.accel)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    primary = (mro, mrd, mzeros, mones)
     side = int(round(MILLION_RAYS ** 0.5))
     sro, srd = generate_rays(mcam, side, side, 0, 0)
     m = side * side
-    m4_ms = cuda_ms(lambda: intersect_list(million.geom, sro, srd,
-                                           mzeros[:m], mones[:m],
-                                           accel=million.accel), 20)
+    primary_small = (sro, srd, mzeros[:m], mones[:m])
+    # (the plain version's time is phase 13's, one call on the same rays)
+    k4_ms = k4_time(big, primary)
+    k4_ms_2 = k4_time(big, primary)
+    shapes = (("50k random", big, rand50k),
+              (f"1M {m} primary", million, primary_small),
+              (f"1M {mro.shape[0]} primary", million, primary),
+              ("1M random", million, rand1m))
+    k4_shapes = {what: [] for what, _, _ in shapes}
+    for _ in range(2):          # two readings of each, a round apart
+        for what, scene, rays in shapes:
+            k4_shapes[what].append(k4_time(scene, rays))
     print(f"timing K4 ({smi_line}): 50k scene, {mro.shape[0]} primary rays: "
           f"{k4_ms:.4f} / {k4_ms_2:.4f} ms vs plain {k4_plain_ms:.3f} ms | "
-          f"1M scene, {m} primary rays ({side}x{side}): {m4_ms:.4f} ms",
-          flush=True)
+          + " | ".join(f"{k}: {a:.4f} / {b:.4f} ms"
+                       for k, (a, b) in k4_shapes.items())
+          + f" | set-up (wide tree + rows): 50k {k4_setup_s(big):.3f} s, "
+          f"1M {k4_setup_s(million):.3f} s", flush=True)
     per_spp = {}
     for mode, order in (("off", "scan"), ("sort", "block"), ("sort", "block"),
                         ("off", "scan"), ("gather", "scan")):
@@ -902,7 +1019,8 @@ def large_scene_phases(dev, rs, smi_line):
             "K3 at the 50k tri pack is slower than index_add_")
 
     # K4's bound: every input and output once against the least walk: one
-    # slab test per BVH level for a live ray, one leaf of pair tests for a hit
+    # slab test per level of the binary BVH for a live ray, one leaf of pair
+    # tests for a hit (kept as first reckoned, so that the row compares over time)
     n_rays = mro.shape[0]
     levels = max(1, (big.accel.num_nodes + 1).bit_length() - 1)
     hits = int(intersect_list(big.geom, mro, mrd, mzeros, mones,
@@ -911,9 +1029,19 @@ def large_scene_phases(dev, rs, smi_line):
         n_rays * (24 + 4 + 1 + 17) + big.accel.num_nodes * 48
         + big.num_triangles * 44,
         n_rays * levels * SLAB_OPS + hits * big.accel.leaf_size * PAIR_OPS)
+    # beside it, the walk this run counted: its records and rows read once
+    # per visit, its slab and pair tests, at the card's peaks
+    nodes_per_ray, tris_per_ray = k4_count["50k/primary"]
+    k4_walk = bound_ms(
+        n_rays * (24 + 4 + 1 + 17 + nodes_per_ray * K4_RECORD_BYTES
+                  + tris_per_ray * K4_ROW_BYTES),
+        n_rays * (nodes_per_ray * K4_WIDTH * SLAB_OPS
+                  + tris_per_ray * PAIR_OPS))
     print(f"bound K4 50k primary: {k4_bound[0]:.4f} ms by {k4_bound[1]} "
           f"({levels} levels, {hits} hits, leaves of "
-          f"{big.accel.leaf_size})", flush=True)
+          f"{big.accel.leaf_size}); the counted walk ({nodes_per_ray:.2f} "
+          f"records and {tris_per_ray:.2f} triangles per ray) at the card's "
+          f"peaks: {k4_walk[0]:.4f} ms by {k4_walk[1]}", flush=True)
     return {"launches": k4_launches, "err": k4_err, "ms": k4_ms,
             "plain_ms": k4_plain_ms, "bound": k4_bound, "k2_err": k2_err,
             "k3_err": k3_err, "scene": big, "camera": mcam, "cfg": mcfg,
@@ -962,8 +1090,10 @@ def main():
             print(f"  ptxas: {line.strip()}", flush=True)
 
     # ---- 3. K1 vs plain ----
-    cornell = builders.cornell_box().to(dev)
-    spheres = builders.cornell_spheres_scene().to(dev)
+    cornell = builders.cornell_box()
+    spheres = builders.cornell_spheres_scene()
+    require(cornell.device.type == "cuda" and spheres.device.type == "cuda",
+            "the builders' default device is not the card")
     camera = Camera.make(**CAM_POSE).to(dev)
     ro, rd = generate_rays(camera, 512, 512, 0, 0)
     zeros = torch.zeros(N_RAYS, dtype=torch.float32, device=dev)
@@ -1060,7 +1190,7 @@ def main():
                                    spp=16)),
     }
     for name, (build, lens, kw) in goldens.items():
-        mean, var = render_mean_var(build().to(dev),
+        mean, var = render_mean_var(build(),
                                     Camera.make(**CAM_POSE, **lens),
                                     RenderConfig(**kw))
         rep = compare(mean, var, np.load(os.path.join(GOLDEN_DIR,
@@ -1183,6 +1313,17 @@ def main():
           f"{sum(us for _, us in per_render.values()) / 1e3:.3f} ms of device "
           f"time; {k1_kernels} of them K1 for {launches['intersect_dense']} "
           f"queries", flush=True)
+    per_fwd = device_kernels(lambda: render(k4["scene"], k4["camera"],
+                                            k4["cfg"]))
+    fwd_us = sum(us for _, us in per_fwd.values())
+    k4_n, k4_us = next(((c, us) for k, (c, us) in per_fwd.items()
+                        if "bvh_intersect_kernel" in k), (0, 0.0))
+    print(f"50k render {RUNG3_SIZE}x{RUNG3_SIZE} depth 3 spp 1: "
+          f"{sum(c for c, _ in per_fwd.values())} device kernels, "
+          f"{fwd_us / 1e3:.2f} ms of device time; K4 x{k4_n} "
+          f"{k4_us / 1e3:.3f} ms"
+          + (f" ({k4_us / fwd_us:.1%})" if fwd_us else
+             " (not measured: no device events)"), flush=True)
     big_zero = torch.zeros((RUNG3_SIZE, RUNG3_SIZE, 3), device=dev)
     per_grad = device_kernels(lambda: grad_render(
         k4["scene"], k4["camera"], k4["cfg"], big_zero))
@@ -1215,26 +1356,26 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "intersect_dense", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/intersect.cu",
-         "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas.py:216",
+         "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas.py:217",
          "launches": launches["intersect_dense"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "gather_rows_t", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/packgather.cu",
-         "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:91",
+         "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:92",
          "launches": launches["gather_rows_t"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
         {"name": "gather_rows_t_bwd", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/packgather.cu",
-         "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:111",
+         "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:112",
          "launches": bwd_launches["gather_rows_t_bwd"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_lib_ms},
         {"name": "intersect_list", "route": "cuda",
          "source": "pbrpathtracer_tpu_torch/csrc/bvh_intersect.cu",
-         "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas_list.py:357",
+         "replaces": "pbrpathtracer_tpu/kernels/intersect_pallas_list.py:358",
          "launches": k4["launches"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],

@@ -1,6 +1,8 @@
 """pbrpathtracer_tpu_torch: the PyTorch + CUDA port of ``pbrpathtracer_tpu``.
 
-The render and its gradient run on the tensors' device. On an NVIDIA H100
+The scene builders put a scene on the card unless the caller names another
+device (``device="cpu"``), and the render and its gradient run on the
+scene's device. On an NVIDIA H100
 the closest-hit queries, the shading-pack fetches and their backward run in
 hand-written CUDA kernels (``csrc/``), built with nvcc at first use; on the
 CPU the same calls take the kernels' plain torch versions. The JAX package
@@ -8,7 +10,7 @@ stays the reference that the port is tested against; this package never
 imports JAX.
 
     from pbrpathtracer_tpu_torch import builders, Camera, RenderConfig, render
-    scene = builders.cornell_box().to("cuda")
+    scene = builders.cornell_box()      # on the card; device="cpu": the CPU
     camera = Camera.make(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1),
                          fovy=61)
     cfg = RenderConfig(width=512, height=512, max_depth=4)

@@ -5,6 +5,8 @@ port.
 JAX arrays without importing JAX. The tests use it to feed both packages the
 same scene, including scenes the port has no builder for (textured scenes,
 loaded meshes). A JAX scene's BVH (``accel``) comes over leaf for leaf.
+Like the port's own scene functions, it puts the scene on the card unless the caller
+names another device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,10 @@ def _leaves(cls, obj, static=()):
                   for f in dataclasses.fields(cls)})
 
 
-def from_reference(scene, camera=None):
+def from_reference(scene, camera=None, device: str | torch.device = "cuda"):
     """Convert a JAX-package ``Scene`` (and optionally its ``Camera``) to the
-    port's, leaf for leaf and bit for bit. Returns ``(scene, camera)``; the
-    camera is None when none was given."""
+    port's, leaf for leaf and bit for bit, on ``device``. Returns
+    ``(scene, camera)``; the camera is None when none was given."""
     accel = getattr(scene, "accel", None)
     port_scene = Scene(
         geom=_leaves(Geometry, scene.geom),
@@ -39,8 +41,9 @@ def from_reference(scene, camera=None):
         has_translucent=bool(scene.has_translucent),
         accel=None if accel is None else _leaves(FlatBVH, accel,
                                                  static=("leaf_size",)),
-    )
-    port_camera = None if camera is None else _leaves(Camera, camera)
+    ).to(device)
+    port_camera = (None if camera is None
+                   else _leaves(Camera, camera).to(device))
     return port_scene, port_camera
 
 

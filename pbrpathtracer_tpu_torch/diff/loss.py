@@ -18,9 +18,10 @@ def render_with_params(params, scene, camera, cfg, seed=None):
 
 
 def l2_image_loss(params, scene, camera, cfg, target, seed=None):
-    """Mean squared pixel error against a target image f32[H, W, 3]."""
+    """Mean squared pixel error against a target image f32[H, W, 3], which
+    follows the scene's device as the camera does."""
     img = render_with_params(params, scene, camera, cfg, seed=seed)
-    return torch.mean((img - target) ** 2)
+    return torch.mean((img - target.to(img.device)) ** 2)
 
 
 def loss_and_grad(params, scene, camera, cfg, target, seed=None):

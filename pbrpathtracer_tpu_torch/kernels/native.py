@@ -38,10 +38,13 @@ _SIGNATURES = {
     # out_hit, out_i, out_t, out_u, out_v, stream
     "pbr_intersect_dense": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                             _p, _p, _p, _p, _p, _p],
-    # ro, rd, t_lower, alive, nodes, links, tris, pos, perm, n, n_nodes,
+    # ro, rd, t_lower, alive, nodes, tris, pos, perm, n, n_nodes,
     # out_hit, out_i, out_t, out_u, out_v, stream
-    "pbr_intersect_bvh": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+    "pbr_intersect_bvh": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
                           _p, _p, _p, _p, _p, _p],
+    # the same, with out_nodes, out_tris before the stream
+    "pbr_intersect_bvh_stats": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+                                _p, _p, _p, _p, _p, _p, _p, _p],
     # idx, table, n, n_rows, width, out, stream
     "pbr_packgather_fwd": [_p, _p, _i, _i, _i, _p, _p],
     # idx, cot, n, n_rows, width, sort_tile, chunk, passes, scratch_i,

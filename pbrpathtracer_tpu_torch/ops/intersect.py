@@ -35,8 +35,30 @@ def mask_dead(alive, hit, idx, t, u, v):
             torch.where(alive, u, 0.0), torch.where(alive, v, 0.0))
 
 
-def _hit_tests(a, u_num, v_num, t_num, t_lower):
-    """Acceptance tests; returns (t with misses at BIG, u, v)."""
+def moller_trumbore(rox, roy, roz, rdx, rdy, rdz, v0x, v0y, v0z, e1x, e1y,
+                    e1z, e2x, e2y, e2z):
+    """The determinant and the three numerators (a, u_num, v_num, t_num) of
+    ray-triangle pairs, by components that broadcast against each other, in
+    the kernels' operation order."""
+    hx = rdy * e2z - rdz * e2y
+    hy = rdz * e2x - rdx * e2z
+    hz = rdx * e2y - rdy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    sx = rox - v0x
+    sy = roy - v0y
+    sz = roz - v0z
+    u_num = sx * hx + sy * hy + sz * hz
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v_num = rdx * qx + rdy * qy + rdz * qz
+    t_num = e2x * qx + e2y * qy + e2z * qz
+    return a, u_num, v_num, t_num
+
+
+def hit_tests(a, u_num, v_num, t_num, t_lower):
+    """Acceptance tests on [rays, triangles] pairs; returns (t with misses
+    at BIG, u, v)."""
     denom_ok = torch.abs(a) >= EPS
     f = torch.where(denom_ok, 1.0 / torch.where(denom_ok, a, 1.0), 0.0)
     u = u_num * f
@@ -73,20 +95,10 @@ def intersect_classic(geom: Geometry, ro, rd, t_lower=None, alive=None):
         sl = slice(r0, r0 + rows)
         rdx, rdy, rdz = (rd[sl, k:k + 1] for k in range(3))   # [n, 1]
         rox, roy, roz = (ro[sl, k:k + 1] for k in range(3))
-        hx = rdy * e2z - rdz * e2y
-        hy = rdz * e2x - rdx * e2z
-        hz = rdx * e2y - rdy * e2x
-        a = e1x * hx + e1y * hy + e1z * hz
-        sx = rox - v0x
-        sy = roy - v0y
-        sz = roz - v0z
-        u_num = sx * hx + sy * hy + sz * hz
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        v_num = rdx * qx + rdy * qy + rdz * qz
-        t_num = e2x * qx + e2y * qy + e2z * qz
-        t_m, u, v = _hit_tests(a, u_num, v_num, t_num, t_lower[sl])
+        a, u_num, v_num, t_num = moller_trumbore(
+            rox, roy, roz, rdx, rdy, rdz, v0x, v0y, v0z, e1x, e1y, e1z,
+            e2x, e2y, e2z)
+        t_m, u, v = hit_tests(a, u_num, v_num, t_num, t_lower[sl])
         arg = torch.argmin(t_m, dim=1, keepdim=True)
         best_t[sl] = t_m.gather(1, arg)[:, 0]
         best_u[sl] = u.gather(1, arg)[:, 0]

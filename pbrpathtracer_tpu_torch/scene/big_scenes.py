@@ -7,6 +7,10 @@ the card runs the same scenes without JAX.
                             area light; ~n_tris triangles, checker/noise
                             textures on the terrain (config 3 at 50k)
   million_tri_scene()    -- config 5 geometry (~1M triangles)
+
+Both take ``device`` and return the scene, BVH included, there: on the card
+(``"cuda"``) unless the caller names another, ``device="cpu"`` for the CPU.
+The scene is built on the host and moved once at the end.
 """
 
 from __future__ import annotations
@@ -85,7 +89,8 @@ def _textures(tex_size: int = 64) -> Textures:
 
 def mesh_scene(n_tris: int = 50_000, textured: bool = True,
                accel: str = "auto", seed: int = 0,
-               tex_size: int = 64) -> Scene:
+               tex_size: int = 64,
+               device: str | torch.device = "cuda") -> Scene:
     """~n_tris scene: textured displaced terrain + rock field + area light."""
     rs = np.random.RandomState(seed)
 
@@ -151,7 +156,8 @@ def mesh_scene(n_tris: int = 50_000, textured: bool = True,
         "mat_id": mat_id, "element_id": mat_id,
     })
     textures = _textures(tex_size) if textured else None
-    return finalize_scene(geom, pack_materials(mats), textures, accel=accel)
+    return finalize_scene(geom, pack_materials(mats), textures,
+                          accel=accel).to(device)
 
 
 def mesh_scene_camera() -> Camera:
@@ -159,6 +165,7 @@ def mesh_scene_camera() -> Camera:
                        up=(0, 1, 0), fovy=55)
 
 
-def million_tri_scene(accel: str = "auto") -> Scene:
+def million_tri_scene(accel: str = "auto",
+                      device: str | torch.device = "cuda") -> Scene:
     """BASELINE config 5 geometry (~1M triangles)."""
-    return mesh_scene(1_000_000, textured=True, accel=accel)
+    return mesh_scene(1_000_000, textured=True, accel=accel, device=device)

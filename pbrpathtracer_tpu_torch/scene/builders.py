@@ -1,7 +1,12 @@
 """Procedural scenes, built on the host with numpy exactly as the JAX
 package's ``scene/builders.py`` builds them, so both packages render the same
 triangles and materials. The machine that runs the port has no JAX, so the
-port packs its own scenes; ``bridge.from_reference`` serves only the tests."""
+port packs its own scenes; ``bridge.from_reference`` serves only the tests.
+
+Every scene function here takes ``device`` and returns its scene there: on
+the card (``"cuda"``) unless the caller names another, ``device="cpu"`` for
+the CPU. The scene is assembled on the host and moved once at the end;
+without a card the default raises torch's own error."""
 
 from __future__ import annotations
 
@@ -75,8 +80,9 @@ def _assemble_geom(tri_groups) -> Geometry:
     })
 
 
-def _assemble(tri_groups, materials) -> Scene:
-    return finalize_scene(_assemble_geom(tri_groups), pack_materials(materials))
+def _assemble(tri_groups, materials, device) -> Scene:
+    return finalize_scene(_assemble_geom(tri_groups),
+                          pack_materials(materials)).to(device)
 
 
 def cornell_box(with_boxes: bool = True,
@@ -84,7 +90,8 @@ def cornell_box(with_boxes: bool = True,
                 right_diffuse=(0.25, 0.25, 0.75),
                 white=(0.75, 0.75, 0.75),
                 light_emissive=(1.0, 0.85, 0.6),
-                light_intensity: float = 1.5) -> Scene:
+                light_intensity: float = 1.5,
+                device: str | torch.device = "cuda") -> Scene:
     """Cornell box, camera looking down +z: room x,y in [-1, 1], z in [0, 4],
     an area light under the ceiling and two diffuse boxes (36 triangles).
     Walls wind inward, so NEE's ``dot(n, l) <= 0`` rejection sees the
@@ -117,13 +124,14 @@ def cornell_box(with_boxes: bool = True,
     if with_boxes:
         groups.append((_box((-0.42, -0.4, 2.8), (0.6, 1.2, 0.6), rot_y=0.3), 4))
         groups.append((_box((0.45, -0.7, 2.0), (0.6, 0.6, 0.6), rot_y=-0.25), 5))
-    return _assemble(groups, mats)
+    return _assemble(groups, mats, device)
 
 
-def cornell_spheres_scene(n_seg: int = 12) -> Scene:
+def cornell_spheres_scene(n_seg: int = 12,
+                          device: str | torch.device = "cuda") -> Scene:
     """Cornell box with a glossy and a rough-metal faceted sphere
     (588 triangles: two chunks of the dense intersector)."""
-    scene = cornell_box(with_boxes=False)
+    scene = cornell_box(with_boxes=False, device="cpu")
     mats = [
         MaterialSpec(diffuse=(0.9, 0.7, 0.3), specular=(0.95, 0.85, 0.6),
                      roughness=0.3, reflectiveness=0.9),
@@ -149,21 +157,22 @@ def cornell_spheres_scene(n_seg: int = 12) -> Scene:
 
     extra = [(sphere_tris((-0.45, -0.6, 2.6), 0.4), 6),
              (sphere_tris((0.5, -0.65, 1.9), 0.35), 7)]
-    return _merge_into(scene, extra, mats)
+    return _merge_into(scene, extra, mats).to(device)
 
 
-def translucent_scene() -> Scene:
+def translucent_scene(device: str | torch.device = "cuda") -> Scene:
     """Cornell box around a dielectric (glass-like) box."""
-    scene = cornell_box(with_boxes=False)
+    scene = cornell_box(with_boxes=False, device="cpu")
     mats = [MaterialSpec(mat_type=TRANSLUCENT, diffuse=(0.95, 0.95, 0.99),
                          specular=(1, 1, 1), roughness=0.0,
                          reflectiveness=0.0, translucency=1.0, ior=1.5)]
     extra = [(_box((0.0, -0.45, 2.2), (0.8, 1.1, 0.5), rot_y=0.4), 6)]
-    return _merge_into(scene, extra, mats)
+    return _merge_into(scene, extra, mats).to(device)
 
 
 def mirror_box_scene(spec_level: float = 0.9,
-                     diffuse_level: float = 0.9) -> Scene:
+                     diffuse_level: float = 0.9,
+                     device: str | torch.device = "cuda") -> Scene:
     """A closed box of perfect mirrors (reflectiveness 1, roughness 0) with a
     ceiling light: specular chains here are bounded only by Russian roulette
     and the segment cap."""
@@ -186,12 +195,12 @@ def mirror_box_scene(spec_level: float = 0.9,
     e = 0.995
     groups.append((_quad((-0.4, e, 1.8), (0.4, e, 1.8), (0.4, e, 2.6),
                          (-0.4, e, 2.6)), 1))
-    return _assemble(groups, mats)
+    return _assemble(groups, mats, device)
 
 
 def _merge_into(scene: Scene, tri_groups, new_materials) -> Scene:
-    """Append triangle groups and materials to an existing scene. The groups
-    name absolute ids in the merged material table."""
+    """Append triangle groups and materials to an existing host scene. The
+    groups name absolute ids in the merged material table."""
     base_m = scene.materials
     add_m = pack_materials(new_materials)
     materials = Materials(**{

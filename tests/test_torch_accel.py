@@ -14,6 +14,7 @@ plumbing around it, against the JAX package:
 """
 
 import dataclasses
+import functools
 import os
 
 import jax.numpy as jnp
@@ -33,12 +34,15 @@ from pbrpathtracer_tpu.scene.scene import with_accel as j_with_accel
 from pbrpathtracer_tpu_torch.accel import native
 from pbrpathtracer_tpu_torch.accel.build import (FlatBVH, build_bvh,
                                                  validate_bvh)
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.ops.hit import default_intersector
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import (MaterialSpec, finalize_scene,
                                                  pack_geometry,
                                                  pack_materials, with_accel)
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 FIELDS = ("bounds_min", "bounds_max", "first", "count", "escape", "perm")
 
@@ -138,7 +142,7 @@ def test_finalize_scene_rejects_unknown_accel():
 
 def test_with_accel_and_from_reference_carry_the_bvh():
     js = j_with_accel(jb.cornell_box())
-    ps = with_accel(pb.cornell_box())
+    ps = with_accel(pb.cornell_box(device="cpu"))
     _assert_bvh_equal(js.accel, ps.accel)
     carried, _ = from_reference(js)
     _assert_bvh_equal(js.accel, carried.accel)

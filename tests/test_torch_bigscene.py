@@ -35,7 +35,7 @@ CFG = dict(width=16, height=16, max_depth=3, spp=1, seed=0)
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jbs.mesh_scene(50_000), pbs.mesh_scene(50_000)
+    return jbs.mesh_scene(50_000), pbs.mesh_scene(50_000, device="cpu")
 
 
 def test_mesh_scene_matches_jax_leaf_for_leaf(scenes):

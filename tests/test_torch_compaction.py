@@ -14,6 +14,7 @@ the JAX package:
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +28,15 @@ from pbrpathtracer_tpu.ops.shade import WavefrontState as JState
 from pbrpathtracer_tpu.scene.big_scenes import mesh_scene as j_mesh_scene
 from pbrpathtracer_tpu_torch import (Camera, RenderConfig, builders,
                                      grad_render, render)
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.ops import compaction as pc
 from pbrpathtracer_tpu_torch.ops import integrator as pint
 from pbrpathtracer_tpu_torch.ops.shade import WavefrontState
 from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
                                                       mesh_scene_camera)
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 CAM = Camera.make(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1),
                   up=(0, 1, 0), fovy=61)
@@ -98,18 +102,18 @@ def _renders_equal(scene, camera, **kw):
 
 
 def test_reordered_renders_are_bit_identical_cornell():
-    _renders_equal(builders.cornell_box(), CAM, width=24, height=24,
-                   max_depth=4, seed=7)
+    _renders_equal(builders.cornell_box(device="cpu"), CAM, width=24,
+                   height=24, max_depth=4, seed=7)
 
 
 def test_reordered_renders_are_bit_identical_translucent_deep():
-    _renders_equal(builders.translucent_scene(), CAM, width=16, height=16,
-                   max_depth=6, seed=3)
+    _renders_equal(builders.translucent_scene(device="cpu"), CAM, width=16,
+                   height=16, max_depth=6, seed=3)
 
 
 def test_reordered_renders_are_bit_identical_large_scene():
     """Over bvh_threshold triangles: the coherence key, and K4's route."""
-    scene = mesh_scene(6000)
+    scene = mesh_scene(6000, device="cpu")
     assert scene.num_triangles > RenderConfig().bvh_threshold
     _renders_equal(scene, mesh_scene_camera(), width=16, height=16,
                    max_depth=3, seed=1)
@@ -122,7 +126,7 @@ def test_sort_gradients_match_off(order, remat):
     checkpointed segments)."""
     target = torch.zeros((16, 16, 3))
     kw = dict(width=16, height=16, max_depth=3, seed=2, remat_segments=remat)
-    scene = builders.cornell_box()
+    scene = builders.cornell_box(device="cpu")
     _, ref = grad_render(scene, CAM, RenderConfig(**kw), target)
     _, got = grad_render(scene, CAM, RenderConfig(
         compact_wavefront="sort", pixel_order=order, **kw), target)
@@ -131,7 +135,7 @@ def test_sort_gradients_match_off(order, remat):
 
 
 def test_sort_texture_gradients_match_off_large_scene():
-    scene, cam = mesh_scene(6000), mesh_scene_camera()
+    scene, cam = mesh_scene(6000, device="cpu"), mesh_scene_camera()
     target = torch.zeros((12, 12, 3))
     kw = dict(width=12, height=12, max_depth=2, seed=4)
     _, ref = grad_render(scene, cam, RenderConfig(**kw), target,
@@ -145,7 +149,8 @@ def test_sort_texture_gradients_match_off_large_scene():
 
 
 def test_auto_resolves_as_jax_off_the_tpu():
-    for scene in (builders.cornell_box(), mesh_scene(6000)):
+    for scene in (builders.cornell_box(device="cpu"),
+                  mesh_scene(6000, device="cpu")):
         cfg, jcfg = RenderConfig(), JConfig()
         assert cfg.compact_wavefront == jcfg.compact_wavefront == "auto"
         assert cfg.bvh_threshold == jcfg.bvh_threshold

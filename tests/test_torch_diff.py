@@ -16,6 +16,7 @@ differences, on the CPU.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,8 @@ from pbrpathtracer_tpu.scene import builders as jb
 from pbrpathtracer_tpu.scene.scene import Camera as JCamera
 from pbrpathtracer_tpu_torch import (RenderConfig, get_params, grad_render,
                                      l2_image_loss, render)
-from pbrpathtracer_tpu_torch.bridge import from_reference, params_from_reference
+from pbrpathtracer_tpu_torch.bridge import params_from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.diff.loss import finite_difference_grad
 from pbrpathtracer_tpu_torch.diff.params import MATERIAL_FIELDS
 from pbrpathtracer_tpu_torch.ops import rng
@@ -45,6 +47,9 @@ from pbrpathtracer_tpu_torch.ops.shade import WavefrontState, shade_segment
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import Camera
 from pbrpathtracer_tpu_torch.utils.constants import TRANSLUCENT
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1), up=(0, 1, 0),
             fovy=61)
@@ -168,7 +173,7 @@ def test_render_grads_match_jax():
 
 @pytest.mark.parametrize("remat", ["hits", "all", "off"])
 def test_remat_modes_give_the_same_gradients(remat):
-    ps, cam = pb.cornell_box(), CAM
+    ps, cam = pb.cornell_box(device="cpu"), CAM
     cfg = RenderConfig(width=8, height=8, max_depth=2, spp=1, seed=2)
     target = torch.zeros((8, 8, 3))
     loss, grads = grad_render(ps, cam, cfg.replace(remat_segments=remat),
@@ -183,7 +188,7 @@ def test_remat_modes_give_the_same_gradients(remat):
 def test_forward_only_render_records_no_graph():
     """No leaf requires grad: the render is a plain tensor without a graph,
     usable as a loss target; with a leaf that requires grad, it has one."""
-    ps = pb.cornell_box()
+    ps = pb.cornell_box(device="cpu")
     cfg = RenderConfig(width=6, height=6, max_depth=2, seed=1)
     img = render(ps, CAM, cfg)
     assert not img.is_inference() and img.grad_fn is None
@@ -218,7 +223,7 @@ def _check_fd(lossf, grads, params, key, indices, eps=2e-3, rtol=5e-3,
 
 
 def test_grads_finite_everywhere():
-    _, _, grads = _port_setup(pb.cornell_box())
+    _, _, grads = _port_setup(pb.cornell_box(device="cpu"))
     for k, v in grads.items():
         assert torch.isfinite(v).all(), f"non-finite grad in {k}"
 
@@ -226,13 +231,13 @@ def test_grads_finite_everywhere():
 def test_diffuse_grad_matches_fd_nonmax_channels():
     # material 1 = red wall diffuse (0.75, 0.25, 0.25): channels g, b are
     # non-max, so no Russian-roulette coupling. Flat indices 4, 5.
-    params, lossf, grads = _port_setup(pb.cornell_box())
+    params, lossf, grads = _port_setup(pb.cornell_box(device="cpu"))
     _check_fd(lossf, grads, params, "mat.diffuse", [4, 5])
 
 
 def test_emissive_and_intensity_grads_match_fd():
     # the light is material 3: emissive flat indices 9, 10, 11
-    params, lossf, grads = _port_setup(pb.cornell_box())
+    params, lossf, grads = _port_setup(pb.cornell_box(device="cpu"))
     _check_fd(lossf, grads, params, "mat.emissive", [9, 10, 11], eps=5e-3)
     _check_fd(lossf, grads, params, "mat.emissive_intensity", [3], eps=5e-3)
 
@@ -245,7 +250,7 @@ def _glass(scene):
 def test_translucent_specular_grad_matches_fd():
     """The glass specular colour scales the reflect-branch throughput and
     feeds no decision."""
-    scene = pb.translucent_scene()
+    scene = pb.translucent_scene(device="cpu")
     params, lossf, grads = _port_setup(scene, depth=3)
     glass = _glass(scene)
     _check_fd(lossf, grads, params, "mat.specular",
@@ -255,19 +260,19 @@ def test_translucent_specular_grad_matches_fd():
 def test_translucency_grad_is_zero():
     """Translucency feeds only the refract-vs-diffuse draw: its pathwise
     gradient is exactly zero by the detached-decision contract."""
-    scene = pb.translucent_scene()
+    scene = pb.translucent_scene(device="cpu")
     _, _, grads = _port_setup(scene, w=8, h=8, depth=3)
     assert not grads["mat.translucency"].any()
 
 
 def test_specular_grad_zero_without_specular_paths():
     # all-diffuse Cornell (reflectiveness 0): the specular gradient is 0
-    _, _, grads = _port_setup(pb.cornell_box())
+    _, _, grads = _port_setup(pb.cornell_box(device="cpu"))
     assert not grads["mat.specular"].any()
 
 
 def test_camera_lens_grads_exist():
-    ps = pb.cornell_box()
+    ps = pb.cornell_box(device="cpu")
     cam = Camera.make(**POSE, focal_dist=2.0, aperture=0.03)
     cfg = RenderConfig(width=12, height=12, max_depth=2, spp=2, seed=5)
     _, g = grad_render(ps, cam, cfg, torch.zeros((12, 12, 3)),
@@ -284,7 +289,7 @@ def test_translucent_ior_grad_matches_fd_stable_lanes():
     segment level on lanes whose outgoing direction does not flip under
     +-2 eps and whose k is away from the TIR boundary, against a
     Richardson-extrapolated central FD (tests/test_diff.py's case)."""
-    scene = pb.translucent_scene()
+    scene = pb.translucent_scene(device="cpu")
     cfg = RenderConfig(width=24, height=24, max_depth=3, spp=1, seed=3)
     N = cfg.width * cfg.height
     pix = torch.arange(N, dtype=torch.int32)

@@ -6,6 +6,7 @@ JAX 6-step parameters at atol 1e-5 (Adam's update divides by the root of
 the second moment, so float noise in a small gradient moves a parameter by
 up to ~lr times its relative size)."""
 
+import functools
 import shutil
 
 import jax.numpy as jnp
@@ -18,9 +19,12 @@ from pbrpathtracer_tpu.engine.config import RenderConfig as JConfig
 from pbrpathtracer_tpu.scene import builders as jb
 from pbrpathtracer_tpu.scene.scene import Camera as JCamera
 from pbrpathtracer_tpu_torch import RenderConfig, fit, render, set_params
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import Camera
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1), up=(0, 1, 0),
             fovy=61)
@@ -31,7 +35,7 @@ def test_fit_recovers_perturbed_albedo():
     """tests/test_diff.py's case: the red wall's diffuse perturbed to
     (0.4, 0.5, 0.5) and fitted back with a fixed seed (the target's own
     Monte Carlo noise), 12x12, 40 steps."""
-    scene = pb.cornell_box()
+    scene = pb.cornell_box(device="cpu")
     cfg = RenderConfig(width=12, height=12, max_depth=2, spp=2, seed=3)
     target = render(scene, CAM, cfg)
     true = scene.materials.diffuse.clone()
@@ -48,7 +52,7 @@ def test_fit_recovers_perturbed_albedo():
 def test_fit_checkpoint_resume_bitexact(tmp_path):
     """Interrupting a fit at step 3 and resuming reproduces the
     uninterrupted 6-step trajectory bit for bit."""
-    scene = pb.cornell_box()
+    scene = pb.cornell_box(device="cpu")
     cfg = RenderConfig(width=8, height=8, max_depth=2, spp=1, seed=7)
     target = torch.zeros((8, 8, 3))
     ckpt = str(tmp_path / "fit.npz")

@@ -6,11 +6,14 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 K1, K2 and K4 are built to agree with their plain versions bit for bit
-(``--fmad=false``, IEEE division), so those comparisons are exact. K3 sums in
+(``--fmad=false``, IEEE division), so those comparisons are exact. K4's walk is also held against ``walk_plain``, the same walk in
+plain torch, counts included, and its counting twin against itself. K3 sums in
 double in a fixed order: it is held to an f64 reference at rtol 1e-6, atol
 1e-5 and must give the same bits on every call; its plain version
 (``index_add_`` with float atomics on the card) agrees to f32 round-off.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -62,7 +65,7 @@ def _rays(seed, n, dev):
                                   "translucent_scene"])
 @pytest.mark.parametrize("n", [1, 100, 65_536])
 def test_intersect_kernel_matches_plain(dev, name, n):
-    geom = getattr(builders, name)().to(dev).geom
+    geom = getattr(builders, name)().geom
     args = (geom, *_rays(n, n, dev))
     _assert_same(KI.intersect_dense(*args), KI.intersect_dense_plain(*args))
 
@@ -93,7 +96,7 @@ def test_intersect_kernel_edge_cases(dev):
 def test_intersect_kernel_optional_inputs_and_perm(dev, name, with_perm):
     """t_lower=None and alive=None reach the kernel as null pointers; the
     kernel maps the winner through ``perm`` itself."""
-    geom = getattr(builders, name)().to(dev).geom
+    geom = getattr(builders, name)().geom
     ro, rd, t_lower, alive = _rays(7, 20_001, dev)
     perm = torch.tensor(np.random.RandomState(3).permutation(
         geom.num_triangles), dtype=torch.int32, device=dev) \
@@ -113,8 +116,8 @@ def test_intersect_kernel_optional_inputs_and_perm(dev, name, with_perm):
 def test_intersect_kernel_prepares_once_per_geometry(dev):
     """A second scene queried between two queries of the first: each
     geometry keeps its own rows, and one query is one launch."""
-    a = builders.cornell_box().to(dev).geom
-    b = builders.cornell_spheres_scene().to(dev).geom
+    a = builders.cornell_box().geom
+    b = builders.cornell_spheres_scene().geom
     rays = _rays(8, 4096, dev)
     first = KI.intersect_dense(a, *rays)
     prep = a._k1_prepared[1]
@@ -150,11 +153,12 @@ def test_packgather_rejects_mixed_devices(dev):
 def test_render_goes_through_the_kernels_only(dev):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=2, seed=1)
     scene = builders.cornell_box()
+    assert scene.device.type == "cuda"   # the builders' default
     counters = (KI.intersect_dense, KI.intersect_dense_plain,
                 KP.gather_rows_t, KP.gather_rows_t_plain)
     for fn in counters:
         fn.launches = 0
-    img = render(scene.to(dev), Camera.make(**POSE), cfg)
+    img = render(scene, Camera.make(**POSE), cfg)
     torch.cuda.synchronize()
     assert KI.intersect_dense.launches > 0 and KP.gather_rows_t.launches > 0
     assert KI.intersect_dense_plain.launches == 0
@@ -162,7 +166,7 @@ def test_render_goes_through_the_kernels_only(dev):
     # the same render on the CPU: identical up to knife-edge pixels, where an
     # ULP of difference between the CPU's and the card's sin/cos/sqrt can
     # flip a decision
-    ref = render(scene, Camera.make(**POSE), cfg)
+    ref = render(scene.to("cpu"), Camera.make(**POSE), cfg)
     d = (img.cpu() - ref).abs().amax(dim=-1)
     assert (d > 1e-3).float().mean() <= 0.005
     assert d[d <= 1e-3].mean() < 1e-4
@@ -242,7 +246,7 @@ def test_cuda_backward_never_reaches_the_plain_version(dev, monkeypatch):
 
 def test_grad_render_goes_through_the_kernels_only(dev):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=1, seed=1)
-    scene = builders.cornell_box().to(dev)
+    scene = builders.cornell_box()
     cam = Camera.make(**POSE)
     counters = (KI.intersect_dense, KI.intersect_dense_plain,
                 KP.gather_rows_t, KP.gather_rows_t_plain,
@@ -260,7 +264,7 @@ def test_grad_render_goes_through_the_kernels_only(dev):
     assert all(torch.isfinite(g).all() for g in grads.values())
     # the same gradients on the CPU, up to f32 round-off (knife-edge lanes
     # aside, none of which this image has measured)
-    ref_loss, ref = grad_render(builders.cornell_box(), cam, cfg,
+    ref_loss, ref = grad_render(builders.cornell_box(device="cpu"), cam, cfg,
                                 torch.zeros((32, 32, 3)))
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     for k, g in ref.items():
@@ -294,7 +298,7 @@ def _k4_both(scene, ro, rd, t_lower, alive):
 @pytest.mark.parametrize("accel", ["none", "always"])
 @pytest.mark.parametrize("n", [1, 1000, 65_536])
 def test_bvh_kernel_matches_plain_mesh_scene(dev, accel, n):
-    scene = mesh_scene(3000, accel=accel).to(dev)
+    scene = mesh_scene(3000, accel=accel)
     out, ref = _k4_both(scene, *_scene_rays(n, n, dev))
     _assert_same(out, ref)
 
@@ -341,19 +345,57 @@ def test_bvh_kernel_ties_go_to_the_lowest_position(dev):
 
 
 def test_bvh_kernel_caches_its_inputs_per_scene(dev):
-    scene = mesh_scene(3000, accel="none").to(dev)
+    """The wide tree and the rows are built once per (geometry, BVH): again
+    for another BVH of the same geometry, and afresh for a
+    ``dataclasses.replace``d geometry."""
+    scene = mesh_scene(3000, accel="none")
     ro, rd, t_lower, alive = _scene_rays(0, 256, dev)
     KL.intersect_list(scene.geom, ro, rd, t_lower, alive)
     prep = scene.geom._k4_prepared[1]
-    KL.intersect_list(scene.geom, ro, rd, t_lower, alive)
+    first = KL.intersect_list(scene.geom, ro, rd, t_lower, alive)
     assert scene.geom._k4_prepared[1] is prep
     assert scene.accel is None and torch.equal(prep.pos, prep.perm)
+    assert prep.nodes.is_cuda and prep.nodes.data_ptr() % 128 == 0
+    assert prep.tris.data_ptr() % 16 == 0
+
+    with_bvh = mesh_scene(3000, accel="always")
+    KL.intersect_list(scene.geom, ro, rd, t_lower, alive,
+                      accel=with_bvh.accel)
+    assert scene.geom._k4_prepared[1] is not prep
+    assert scene.geom._k4_prepared[1].pos is None
+
+    moved = dataclasses.replace(scene.geom, v0=scene.geom.v0 + 0.25)
+    out = KL.intersect_list(moved, ro, rd, t_lower, alive)
+    assert moved._k4_prepared[1] is not scene.geom._k4_prepared[1]
+    _assert_same(out, KL.intersect_list_plain(moved, ro, rd, t_lower, alive))
+    assert not torch.equal(out[2], first[2])
+
+
+@pytest.mark.parametrize("accel", ["none", "always"])
+def test_bvh_kernel_matches_the_plain_walk_and_its_counting_twin(dev, accel):
+    """The kernel, its counting twin and ``walk_plain`` on the same layout:
+    the five outputs bit-equal among all three and with the brute-force
+    plain version, and the twin's node and triangle counts equal to the
+    plain walk's lane for lane."""
+    scene = mesh_scene(3000, accel=accel)
+    rays = _scene_rays(21, 4096, dev)
+    out, ref = _k4_both(scene, *rays)
+    _assert_same(out, ref)
+    before = KL.intersect_list.launches
+    twin = KL.intersect_list_stats(scene.geom, *rays, accel=scene.accel)
+    assert KL.intersect_list.launches == before   # not a render-path launch
+    _assert_same(twin[:5], out)
+    walk = KL.walk_plain(KL._prepare(scene.geom, scene.accel), *rays)
+    _assert_same(walk[:5], out)
+    _assert_same(walk[5:], twin[5:])
+    alive = rays[3]
+    assert not twin[5][~alive].any() and bool((twin[5][alive] >= 1).all())
 
 
 def test_cuda_queries_never_reach_the_list_plain_version(dev, monkeypatch):
     def refuse(*args):
         raise AssertionError("a CUDA query took the plain version")
-    scene = mesh_scene(3000, accel="always").to(dev)
+    scene = mesh_scene(3000, accel="always")
     ro, rd, t_lower, alive = _scene_rays(1, 512, dev)
     monkeypatch.setattr(KL, "intersect_list_plain", refuse)
     before = KL.intersect_list.launches
@@ -369,14 +411,14 @@ def test_large_scene_render_goes_through_k4_only(dev):
                 KP.gather_rows_t, KP.gather_rows_t_plain)
     for fn in counters:
         fn.launches = 0
-    img = render(scene.to(dev), mesh_scene_camera(), cfg)
+    img = render(scene, mesh_scene_camera(), cfg)
     torch.cuda.synchronize()
     assert KL.intersect_list.launches > 0 and KP.gather_rows_t.launches > 0
     assert KI.intersect_dense.launches == 0
     assert KI.intersect_dense_plain.launches == 0
     assert KL.intersect_list_plain.launches == 0
     assert KP.gather_rows_t_plain.launches == 0
-    ref = render(scene, mesh_scene_camera(), cfg)
+    ref = render(scene.to("cpu"), mesh_scene_camera(), cfg)
     d = (img.cpu() - ref).abs().amax(dim=-1)
     assert (d > 1e-3).float().mean() <= 0.005
     assert d[d <= 1e-3].mean() < 1e-4
@@ -385,7 +427,7 @@ def test_large_scene_render_goes_through_k4_only(dev):
 @pytest.mark.parametrize("mode,order", [("sort", "scan"), ("gather", "scan"),
                                         ("off", "block"), ("sort", "block")])
 def test_reordered_renders_are_bit_identical_on_the_card(dev, mode, order):
-    scene = mesh_scene(6000).to(dev)
+    scene = mesh_scene(6000)
     kw = dict(width=64, height=48, max_depth=3, spp=1, seed=2)
     ref = render(scene, mesh_scene_camera(), RenderConfig(
         compact_wavefront="off", pixel_order="scan", **kw))

@@ -13,6 +13,7 @@ bit-equal to the port's op-by-op ones.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,9 +24,12 @@ import torch
 from pbrpathtracer_tpu.ops.intersect import intersect_classic as j_classic
 from pbrpathtracer_tpu.scene import builders as jb
 from pbrpathtracer_tpu.scene.scene import pack_geometry as j_pack_geometry
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.kernels import intersect as K
 from pbrpathtracer_tpu_torch.scene.scene import pack_geometry
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 SCENES = ["cornell_box", "cornell_spheres_scene"]
 

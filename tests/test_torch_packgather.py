@@ -5,6 +5,7 @@ included. Backward: against ``jax.grad`` at rtol 1e-6, atol 1e-5
 (tests/test_packgather.py's tolerance: each row sums its cotangents in
 float32, in another order than the TPU kernel's matmul)."""
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +15,12 @@ import torch
 from pbrpathtracer_tpu.kernels.packgather_pallas import gather_rows_t as j_gather
 from pbrpathtracer_tpu.ops import shadepack as jsp
 from pbrpathtracer_tpu.scene import builders as jb
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.kernels import packgather as K
 from pbrpathtracer_tpu_torch.ops import shadepack as psp
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 
 def _case(seed, T, W, N, out_of_range=False):

@@ -11,6 +11,7 @@
   ``benchmarks.goldens.compare``.
 """
 
+import functools
 import os
 
 import jax
@@ -30,12 +31,15 @@ from pbrpathtracer_tpu.oracle.cpu_oracle import Oracle
 from pbrpathtracer_tpu.scene import builders as jb
 from pbrpathtracer_tpu.scene.scene import Camera as JCamera
 from pbrpathtracer_tpu_torch import RenderConfig, render, tonemap_u8
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.ops import integrator as pint
 from pbrpathtracer_tpu_torch.ops.hit import closest_hit
 from pbrpathtracer_tpu_torch.ops.shade import WavefrontState, shade_segment
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import Camera
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1), up=(0, 1, 0),
             fovy=61)
@@ -167,7 +171,7 @@ def test_translucent():
 def test_spheres_from_port_builder():
     """The port's own builder and Camera.make, not the bridge."""
     cfg = dict(width=12, height=12, max_depth=3, spp=2, seed=1)
-    img = render(pb.cornell_spheres_scene(), Camera.make(**POSE),
+    img = render(pb.cornell_spheres_scene(device="cpu"), Camera.make(**POSE),
                  RenderConfig(**cfg)).numpy()
     ref = _jax_render(jb.cornell_spheres_scene(), JCAM, **cfg)
     d = np.abs(img - ref).max(axis=-1)
@@ -187,7 +191,7 @@ def test_tonemap_u8_matches_jax():
 
 
 def test_progressive_accumulation_is_seed_exact():
-    ps = pb.cornell_box()
+    ps = pb.cornell_box(device="cpu")
     cam = Camera.make(**POSE)
     cfg = RenderConfig(width=8, height=8, max_depth=2, seed=4)
     zero = torch.zeros((64, 3))
@@ -198,7 +202,7 @@ def test_progressive_accumulation_is_seed_exact():
 
 
 def test_dead_segment_skip_changes_nothing():
-    ps = pb.translucent_scene()
+    ps = pb.translucent_scene(device="cpu")
     cam = Camera.make(**POSE)
     cfg = RenderConfig(width=8, height=8, max_depth=2, spp=2, seed=9)
     a = render(ps, cam, cfg)
@@ -218,7 +222,7 @@ def test_gradients_raise():
 
 def test_rung1_cornell_golden():
     cfg = RenderConfig(width=128, height=128, max_depth=3, spp=16)
-    ps, cam = pb.cornell_box(), Camera.make(**POSE)
+    ps, cam = pb.cornell_box(device="cpu"), Camera.make(**POSE)
     with torch.inference_mode():
         s = torch.zeros((cfg.num_pixels, 3))
         s2 = torch.zeros_like(s)

@@ -5,6 +5,7 @@ the port's RenderConfig keeps
 the JAX defaults that carry meaning, and importing the port loads no JAX."""
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -19,10 +20,13 @@ from pbrpathtracer_tpu.scene.scene import Camera as JCamera
 from pbrpathtracer_tpu.scene.scene import empty_textures as j_empty
 from pbrpathtracer_tpu.scene.scene import pack_textures as j_pack
 from pbrpathtracer_tpu_torch import RenderConfig
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import (Camera, empty_textures,
                                                  pack_textures)
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,7 +52,8 @@ def _assert_scenes_equal(js, ps):
 @pytest.mark.parametrize("name", ["cornell_box", "cornell_spheres_scene",
                                   "translucent_scene", "mirror_box_scene"])
 def test_builders_match_jax_leaf_for_leaf(name):
-    _assert_scenes_equal(getattr(jb, name)(), getattr(pb, name)())
+    _assert_scenes_equal(getattr(jb, name)(),
+                         getattr(pb, name)(device="cpu"))
 
 
 def test_from_reference_round_trip_is_exact():
@@ -81,11 +86,89 @@ def test_camera_make_matches_jax():
 
 
 def test_scene_to_moves_every_tensor_and_keeps_flags():
-    ps = pb.translucent_scene()
+    ps = pb.translucent_scene(device="cpu")
     moved = ps.to("cpu")
     assert moved.device == torch.device("cpu")
     assert moved.has_translucent and not moved.has_any_texture
     _assert_scenes_equal(jb.translucent_scene(), moved)
+
+
+def _scene_tensors(scene):
+    """Every tensor of a scene, its BVH included."""
+    parts = [scene.geom, scene.materials, scene.textures]
+    if scene.accel is not None:
+        parts.append(scene.accel)
+    out = [scene.lights]
+    for part in parts:
+        out += [getattr(part, f.name) for f in dataclasses.fields(part)
+                if isinstance(getattr(part, f.name), torch.Tensor)]
+    return out
+
+
+def _builders_with_device():
+    from pbrpathtracer_tpu.scene.big_scenes import mesh_scene as j_mesh_scene
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                          million_tri_scene)
+    return {
+        "cornell_box": pb.cornell_box,
+        "cornell_spheres_scene": pb.cornell_spheres_scene,
+        "translucent_scene": pb.translucent_scene,
+        "mirror_box_scene": pb.mirror_box_scene,
+        "mesh_scene": functools.partial(mesh_scene, 5000),
+        "million_tri_scene": million_tri_scene,
+        "from_reference": lambda **kw: bridge.from_reference(
+            j_mesh_scene(5000, textured=False), jb_camera(), **kw)[0],
+    }
+
+
+def jb_camera():
+    return JCamera.make(pos=(0.2, 0.6, -1.5), dir=(0.0, -0.12, 1.0))
+
+
+@pytest.mark.parametrize("name", [
+    "cornell_box", "cornell_spheres_scene", "translucent_scene",
+    "mirror_box_scene", "mesh_scene", "from_reference"])
+def test_builders_put_the_scene_where_the_caller_says(name):
+    """``device="cpu"``: every tensor of the scene and of its BVH lies on
+    the CPU."""
+    scene = _builders_with_device()[name](device="cpu")
+    tensors = _scene_tensors(scene)
+    assert len(tensors) > 20
+    assert all(t.device.type == "cpu" for t in tensors)
+    assert scene.device == torch.device("cpu")
+    if name in ("mesh_scene", "from_reference"):
+        assert scene.accel is not None    # over 4096 triangles
+
+
+@pytest.mark.parametrize("name", [
+    "cornell_box", "cornell_spheres_scene", "translucent_scene",
+    "mirror_box_scene", "mesh_scene", "from_reference"])
+def test_builders_default_to_the_card_and_raise_without_one(name):
+    """No ``device``: the scene goes to the card; where there is none the
+    call raises torch's error and no scene comes back on the CPU."""
+    if torch.cuda.is_available():
+        scene = _builders_with_device()[name]()
+        assert all(t.device.type == "cuda" for t in _scene_tensors(scene))
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        _builders_with_device()[name]()
+
+
+def test_every_scene_builder_takes_a_device_that_defaults_to_the_card():
+    import inspect
+    for name, fn in _builders_with_device().items():
+        if name == "from_reference":
+            fn = bridge.from_reference
+        elif isinstance(fn, functools.partial):
+            fn = fn.func
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            name
+
+
+def test_from_reference_moves_the_camera_with_the_scene():
+    _, cam = from_reference(jb.cornell_box(), jb_camera())
+    assert all(getattr(cam, f.name).device.type == "cpu"
+               for f in dataclasses.fields(cam))
 
 
 @pytest.mark.parametrize("depth,max_segments", [(1, None), (4, None), (3, 17)])

@@ -6,6 +6,7 @@ against the JAX render and the CPU oracle at that file's thresholds (a pixel
 is an outlier when a channel differs by > 1e-3; at most 1% outliers, 2% with
 an opacity texture; mean difference < 1e-4 on the rest)."""
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +25,12 @@ from pbrpathtracer_tpu.utils.constants import (TEX_DIFFUSE, TEX_EMISSIVE,
                                                TEX_METALLIC, TEX_NORMAL,
                                                TEX_OPACITY, TEX_ROUGHNESS)
 from pbrpathtracer_tpu_torch import RenderConfig, render
-from pbrpathtracer_tpu_torch.bridge import from_reference
+from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.ops.hit import interpolate_uv
 from pbrpathtracer_tpu_torch.ops.texture import sample_texture
+
+# The port's scenes live on the card by default; these tests run on the CPU.
+from_reference = functools.partial(bridge.from_reference, device="cpu")
 
 JCAM = JCamera.make(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1),
                     up=(0, 1, 0), fovy=61)
