@@ -24,6 +24,11 @@ and ``EditorScene`` (OBJ objects, transforms, materials, textures;
 (progressive passes with pause, resume and checkpoints), ``preview_render``
 and ``pick`` (``ops/preview``), ``export_png``, and the command line
 ``python -m pbrpathtracer_tpu_torch render scene.pts -o out.png``.
+
+Over several devices (``parallel/``, ``dist/``): one process per device on
+``torch.distributed``, the scene replicated, the pixels sharded by rank;
+``dist.multihost.initialize``, ``render_multihost`` and
+``parallel.render.make_train_step`` (one all-reduce per step).
 """
 
 import torch

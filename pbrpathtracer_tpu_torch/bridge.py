@@ -47,7 +47,10 @@ def from_reference(scene, camera=None, device: str | torch.device = "cuda"):
     return port_scene, port_camera
 
 
-def params_from_reference(params: dict) -> dict:
+def params_from_reference(params: dict,
+                          device: str | torch.device = "cpu") -> dict:
     """Convert a JAX-package params dict (``diff.params.get_params``) to the
-    port's, key for key and bit for bit."""
-    return {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    port's, key for key and bit for bit: fresh tensors on ``device``, which a
+    training step may update in place."""
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in params.items()}

@@ -90,16 +90,23 @@ def _permuted(geom: Geometry, perm):
     return geom.v0[p], geom.e1[p], geom.e2[p]
 
 
-def intersect_dense_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
-    """Plain torch version of the kernel (``ops.intersect.intersect_classic``
-    over the ``perm``-ordered triangles)."""
-    intersect_dense_plain.launches += 1
+def classic_in_order(geom: Geometry, ro, rd, t_lower, alive, perm=None):
+    """``ops.intersect.intersect_classic`` over the ``perm``-ordered
+    triangles, ids mapped back to the scene's: the kernel's function in
+    plain torch, which autograd can differentiate
+    (``hit_vjp="autodiff"``)."""
     v0, e1, e2 = _permuted(geom, perm)
     g = dataclasses.replace(geom, v0=v0, e1=e1, e2=e2)
     hit, idx, t, u, v = intersect_classic(g, ro, rd, t_lower, alive)
     if perm is not None:
         idx = torch.where(hit, perm[idx.long()], 0)
     return hit, idx, t, u, v
+
+
+def intersect_dense_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
+    """Plain torch version of the kernel: ``classic_in_order``, counted."""
+    intersect_dense_plain.launches += 1
+    return classic_in_order(geom, ro, rd, t_lower, alive, perm)
 
 
 intersect_dense_plain.launches = 0

@@ -11,21 +11,34 @@ break exact-t ties, by the scene's BVH when it has one. Each wrapper
 launches its CUDA kernel for CUDA tensors and takes its plain version for
 CPU tensors.
 
-Queries are stop-gradient'd (``hit_vjp="recompute"``): the rays are
-detached and the query records no graph, so its outputs carry no gradient
-and the kernel never runs in a backward. Shading grafts the winner's
-derivatives back on (``ops/shade._winner_straight_through``).
+How a query takes part in a gradient is ``cfg.hit_vjp``'s choice, and only
+of a query whose rays carry a graph:
+
+* "recompute": the rays are detached and the query records no graph, so its
+  outputs carry no gradient and no kernel runs in a backward. Shading grafts
+  the winner's derivatives back on (``ops/shade._winner_straight_through``).
+* "winner": the intersector runs inside an autograd Function whose backward
+  is the winner's closed-form pullback (``ops/intersect_vjp.py``).
+* "autodiff": plain autograd through ``intersect_classic`` (never a kernel;
+  at most 2048 triangles), a debug baseline; ``autodiff_intersector.queries``
+  counts the queries that took it.
+
+Under the last two the opacity re-trace's ``torch.where`` chain carries the
+gradient of (t, u, v). A query without a graph (a forward-only render, a
+shadow query, rays that depend on no parameter) is the same in every mode.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.intersect import MAX_DENSE_CHUNKS, dense_chunks, intersect_dense
+from ..kernels.intersect import (MAX_DENSE_CHUNKS, classic_in_order,
+                                 dense_chunks, intersect_dense)
 from ..kernels.intersect_list import intersect_list
 from ..scene.scene import Scene
 from ..utils.constants import NO_TEXTURE
 from . import rng
+from .intersect_vjp import with_custom_vjp
 from .shadepack import UV_OPACITY_FIELDS, build_uv_opacity_pack, gather_fields
 from .texture import sample_texture
 
@@ -49,24 +62,60 @@ def interpolate_uv(scene: Scene, tri_idx, u, v):
     return w0 * g.uv0[i] + u[:, None] * g.uv1[i] + v[:, None] * g.uv2[i]
 
 
-@torch.no_grad()
+def autodiff_intersector(scene: Scene, ro, rd, t_lower, alive=None):
+    """The dense route's function in plain torch, for autograd: what
+    ``hit_vjp="autodiff"`` differentiates, on whatever device the scene
+    lies. It counts its queries (``autodiff_intersector.queries``), so that
+    a caller can tell how many ran in plain torch and that no other mode
+    ran any."""
+    autodiff_intersector.queries += 1
+    perm = None if scene.accel is None else scene.accel.perm
+    return classic_in_order(scene.geom, ro, rd, t_lower, alive, perm)
+
+
+autodiff_intersector.queries = 0
+
+
 def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
                 slot_base=rng.SLOT_OPACITY_BASE, intersect_fn=None,
-                alive=None):
+                alive=None, discrete=False):
     """Closest hit with stochastic alpha.
 
     Returns (hit bool[N], tri_idx i32[N], t f32[N], u f32[N], v f32[N]).
-    Shadow rays pass ``slot_base=SLOT_NEE_OPACITY_BASE``. ``alive`` masks
+    Shadow rays pass ``slot_base=SLOT_NEE_OPACITY_BASE`` and
+    ``discrete=True``: their caller reads only ``hit`` and ``tri_idx``, so
+    the query is stop-gradient'd whatever ``cfg.hit_vjp``. ``alive`` masks
     dead lanes to a clean miss and lets the kernel skip them.
     """
-    if intersect_fn is None:
-        intersect_fn = default_intersector
     if cfg.opacity_attempts > rng.MAX_OPACITY_ATTEMPTS:
         raise ValueError("opacity_attempts: the draws are one 4-slot group")
     if slot_base % 4 != 0:
         raise ValueError("opacity slot base must be group-aligned")
+    recording = torch.is_grad_enabled()
+    if (cfg.hit_vjp == "autodiff" and recording and intersect_fn is None
+            and dense_chunks(scene.num_triangles) > MAX_DENSE_CHUNKS):
+        raise NotImplementedError(
+            f'hit_vjp="autodiff" on {scene.num_triangles} triangles: scenes '
+            f"over {MAX_DENSE_CHUNKS * 512} take the BVH kernel, which has "
+            'no reverse rule; use "recompute" or "winner"')
+    differentiable = (recording and not discrete
+                      and cfg.hit_vjp != "recompute"
+                      and (ro.requires_grad or rd.requires_grad))
+    if not differentiable:
+        with torch.no_grad():
+            return _closest_hit(scene, cfg, ro.detach(), rd.detach(), seed,
+                                pixel, sample_idx, stream, slot_base,
+                                intersect_fn or default_intersector, alive)
+    if cfg.hit_vjp == "winner":
+        intersect_fn = with_custom_vjp(intersect_fn or default_intersector)
+    elif intersect_fn is None:
+        intersect_fn = autodiff_intersector
+    return _closest_hit(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
+                        slot_base, intersect_fn, alive)
 
-    ro, rd = ro.detach(), rd.detach()
+
+def _closest_hit(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
+                 slot_base, intersect_fn, alive):
     N = ro.shape[0]
     t_lower = torch.zeros(N, dtype=torch.float32, device=ro.device)
 

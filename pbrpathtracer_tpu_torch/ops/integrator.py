@@ -72,7 +72,7 @@ def _shadow_trace(scene, cfg, seed, pixel, sample_idx, stream):
     def trace(p, l, sh_alive=None):
         return closest_hit(scene, cfg, p, l, seed, pixel, sample_idx, stream,
                            slot_base=rng.SLOT_NEE_OPACITY_BASE,
-                           alive=sh_alive)
+                           alive=sh_alive, discrete=True)
     return trace
 
 

@@ -26,7 +26,9 @@ queries are stop-gradient'd (``ops/hit.py``), and shading re-derives the
 winning triangle's (t, u, v) in closed form and grafts its derivatives onto
 the query values (``_winner_straight_through``). The forward values stay
 the query's own bit for bit; a render that records no graph skips the
-recompute, as XLA drops it from a forward-only JAX graph.
+recompute, as XLA drops it from a forward-only JAX graph. Under the other
+two modes the query's own (t, u, v) carry the derivative (``ops/hit.py``)
+and nothing is grafted, or it would count twice.
 """
 
 from __future__ import annotations
@@ -220,7 +222,7 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
      f_tangent, f_bitangent, f_v0, f_e1, f_e2) = sp.gather_fields(
          sp.build_tri_pack(scene), tri_idx, sp.TRI_FIELDS)
 
-    if torch.is_grad_enabled() and any(
+    if cfg.hit_vjp == "recompute" and torch.is_grad_enabled() and any(
             x.requires_grad for x in (state.ro, rd, f_v0, f_e1, f_e2)):
         t, bu, bv = _winner_straight_through(
             state.ro, rd, f_v0, f_e1, f_e2, hit, t, bu, bv)

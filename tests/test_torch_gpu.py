@@ -568,3 +568,108 @@ def test_editor_scene_and_cli_default_to_the_card(dev, tmp_path):
     assert after["intersect_dense"] > before["intersect_dense"]
     assert after["intersect_dense_plain"] == before["intersect_dense_plain"]
     assert read_png(out).shape == (64, 64, 4)
+
+
+# ---- the sharded layers and the hit_vjp modes --------------------------------
+
+@pytest.mark.parametrize("T,N", [(36, 262_144), (2986, 1000),
+                                 (49_970, 262_144), (999_956, 65_536)])
+def test_packgather_kernel_matches_plain_at_width_9(dev, T, N):
+    """The (v0, e1, e2) table that the "winner" backward fetches from."""
+    rs = np.random.RandomState(T)
+    table = torch.tensor(rs.normal(size=(T, 9)), dtype=torch.float32,
+                         device=dev)
+    idx = rs.randint(-2, T + 2, N)
+    idx[::3] = rs.randint(0, min(T, 64), idx[::3].shape[0])   # coherent runs
+    idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+    assert torch.equal(KP.gather_rows_t(table, idx),
+                       KP.gather_rows_t_plain(table, idx))
+
+
+def _plain_intersector(scene, ro, rd, t_lower, alive=None):
+    if KI.dense_chunks(scene.num_triangles) > KI.MAX_DENSE_CHUNKS:
+        perm = None if scene.accel is None else scene.accel.perm
+        return KL.intersect_list_plain(scene.geom, ro, rd, t_lower, alive,
+                                       perm)
+    perm = None if scene.accel is None else scene.accel.perm
+    return KI.intersect_dense_plain(scene.geom, ro, rd, t_lower, alive, perm)
+
+
+@pytest.mark.parametrize("route", ["K1", "K4"])
+def test_custom_vjp_over_the_kernels_equals_it_over_the_plain_versions(
+        dev, route):
+    """``with_custom_vjp`` over K1 and over K4 against the same Function
+    over their plain versions: the same outputs bit for bit, and the same
+    d_ro, d_rd (the winner's rows come through K2 either way)."""
+    from pbrpathtracer_tpu_torch.ops.hit import default_intersector
+    from pbrpathtracer_tpu_torch.ops.intersect_vjp import with_custom_vjp
+    if route == "K1":
+        scene, rays = builders.translucent_scene(), _rays(5, 20_000, dev)
+    else:
+        scene, rays = mesh_scene(3000), _scene_rays(5, 20_000, dev)
+    ro, rd, t_lower, alive = rays
+    cots = torch.tensor(np.random.RandomState(1).normal(size=(3, 20_000)),
+                        dtype=torch.float32, device=dev)
+    out = {}
+    counters = {"K1": KI.intersect_dense, "K4": KL.intersect_list}
+    for name, fn in (("kernel", default_intersector),
+                     ("plain", _plain_intersector)):
+        a = ro.clone().requires_grad_(True)
+        b = rd.clone().requires_grad_(True)
+        before = counters[route].launches, KP.gather_rows_t.launches
+        hit, idx, t, u, v = with_custom_vjp(fn)(scene, a, b, t_lower,
+                                                alive=alive)
+        loss = (t * cots[0] + u * cots[1] + v * cots[2]).sum()
+        grads = torch.autograd.grad(loss, [a, b])
+        launched = (counters[route].launches - before[0],
+                    KP.gather_rows_t.launches - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 1))
+        out[name] = (hit, idx, t, u, v, *grads)
+    _assert_same(out["kernel"], out["plain"])
+    assert float(out["kernel"][5].abs().max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["winner", "autodiff"])
+def test_hit_vjp_modes_give_the_recompute_gradients_on_the_card(dev, mode):
+    scene = builders.translucent_scene()
+    cam = Camera.make(**POSE, focal_dist=2.2, aperture=0.04).to(dev)
+    cfg = RenderConfig(width=32, height=32, max_depth=3, spp=2, seed=3)
+    target = render(scene, cam, cfg) * 0.8
+    ref_loss, ref = grad_render(scene, cam, cfg, target, camera_lens=True)
+    before = (KI.intersect_dense_plain.launches,
+              KP.gather_rows_t_plain.launches)
+    loss, grads = grad_render(scene, cam, cfg.replace(hit_vjp=mode), target,
+                              camera_lens=True)
+    assert before == (KI.intersect_dense_plain.launches,
+                      KP.gather_rows_t_plain.launches)
+    assert float(loss) == float(ref_loss)
+    for k in ref:
+        torch.testing.assert_close(grads[k], ref[k], rtol=1e-4, atol=1e-8)
+
+
+def test_sharded_render_and_step_on_the_card_without_a_group(dev):
+    """The one-process mesh on the card: ``render_sharded`` equals
+    ``render`` bit for bit, and a fused step goes through K1, K2 and K3."""
+    import functools
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.parallel.mesh import (broadcast_params,
+                                                       make_mesh)
+    from pbrpathtracer_tpu_torch.parallel.render import (make_train_step,
+                                                         render_sharded)
+    scene = builders.cornell_box()
+    cam = Camera.make(**POSE).to(dev)
+    cfg = RenderConfig(width=64, height=64, max_depth=3, spp=2, seed=4)
+    mesh = make_mesh()
+    assert mesh.device == scene.device and mesh.world_size == 1
+    assert torch.equal(render_sharded(scene, cam, cfg, mesh=mesh),
+                       render(scene, cam, cfg))
+    params = broadcast_params(get_params(scene, cam), mesh)
+    step = make_train_step(scene, cam, cfg,
+                           functools.partial(torch.optim.Adam, lr=1e-2), mesh)
+    counters = (KI.intersect_dense, KP.gather_rows_t, KP.gather_rows_t_bwd)
+    before = [f.launches for f in counters]
+    loss = step(params,
+                torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev),
+                torch.zeros((cfg.num_pixels, 3), device=dev), 0)
+    assert torch.isfinite(loss)
+    assert all(f.launches > b for f, b in zip(counters, before))

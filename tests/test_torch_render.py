@@ -212,11 +212,13 @@ def test_dead_segment_skip_changes_nothing():
 
 
 def test_gradients_raise():
-    """Gradients are ported for hit_vjp="recompute" only (see
-    tests/test_torch_diff.py); the other modes raise."""
-    for mode in ("winner", "autodiff"):
-        with pytest.raises(NotImplementedError):
-            RenderConfig(width=4, height=4, hit_vjp=mode)
+    """Gradients are ported for every ``hit_vjp`` mode (see
+    tests/test_torch_diff.py and tests/test_torch_hit_vjp.py); a mode that
+    does not exist raises."""
+    for mode in ("recompute", "winner", "autodiff"):
+        assert RenderConfig(width=4, height=4, hit_vjp=mode).hit_vjp == mode
+    with pytest.raises(ValueError):
+        RenderConfig(width=4, height=4, hit_vjp="none")
     with pytest.raises(ValueError):
         RenderConfig(remat_segments="some")
 

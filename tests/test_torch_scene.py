@@ -182,8 +182,11 @@ def test_config_segments_match_jax(depth, max_segments):
 @pytest.mark.parametrize("kw", [dict(hit_vjp="autodiff"),
                                 dict(hit_vjp="winner")])
 def test_config_raises_for_unported_options(kw):
-    with pytest.raises(NotImplementedError):
-        RenderConfig(**kw)
+    """Nothing of ``hit_vjp`` is left unported: both modes construct, as in
+    the JAX package; an unknown value still raises."""
+    assert RenderConfig(**kw).hit_vjp == JConfig(**kw).hit_vjp
+    with pytest.raises(ValueError):
+        RenderConfig(hit_vjp=kw["hit_vjp"] + "s")
     assert RenderConfig(brdf="ggx").brdf == "ggx"      # ported (ops/ggx.py)
     with pytest.raises(ValueError):
         RenderConfig(brdf="phong")
