@@ -3,6 +3,7 @@
 sharded paths once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2 [--root TREE]   # phase 29 alone, on TREE's port
 
 Phases, one line each, any failure ends the run with a non-zero exit:
 
@@ -211,6 +212,23 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                queries that K1 lost; no other run of this script may count
                one. Flagship fwd+bwd milliseconds and peak memory of the
                three modes.
+29. K2 shapes -- K2 at every shape its paths give it, with the ids the
+               renders feed it (caught from ``gather_fields``): the Cornell
+               and spheres tri packs on 512^2 primary hit ids, the 50k and 1M
+               tri packs on primary hit ids and on segment 2's (a bounce),
+               the light pack on NEE light ids, the W = 9 tables of Cornell,
+               50k and 1M, the W = 7 uv-opacity pack (no scene here has an
+               opacity texture, so no path launches it): each bit-equal to
+               the plain version, then its kernel alone (profiler), its call
+               (CUDA events), the plain version, ``index_select``'s kernel
+               and call, the bound. The host microseconds of one
+               ``gather_fields`` call (1,000 calls at 4,096 lanes) without and
+               with a graph. Then K2 bit for bit at the staging limit and one
+               row past it (W = 55 and 9), with N % 4 != 0, N = 31, N = 0,
+               every id out of range, and a table or ids that start off a
+               16-byte boundary. ``--k2 --root TREE`` runs this phase's
+               timings alone on another tree's port (a parent unpacked by
+               ``git archive``), so that two trees are read by the same code.
 Every large-scene run (phases 14-16) is driven with the launch counters at 0
 and must launch K4, never K1 (``intersect_dense``) and no plain version; so
 are the session and preview runs of phases 20 and 21, each with the kernels
@@ -368,7 +386,7 @@ def compare_k2(name, table, idx):
     p = gather_rows_t_plain(table, idx)
     torch.cuda.synchronize()
     equal = torch.equal(k, p)
-    err = float((k - p).abs().max())
+    err = float((k - p).abs().max()) if k.numel() else 0.0
     print(f"K2 {name}: T={table.shape[0]} W={table.shape[1]} "
           f"N={idx.shape[0]} bit-equal={equal} max|d|={err:.3g}", flush=True)
     require(equal, f"K2 {name}: not bit-equal")
@@ -2248,6 +2266,244 @@ def hit_vjp_phase(cornell, camera, big, million, primary_ids, rs, dev,
     return k2_err, w_counts
 
 
+def capture_fetches(fn):
+    """Run ``fn`` with ``ops.shadepack.gather_fields`` watched, as
+    ``ops/shade.py`` calls it: returns (fn's result, [(T, W, ids)] of every
+    fetch in call order; the ids copied outside the render's inference
+    mode, so that a graph may use them)."""
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    seen, fetch = [], sp.gather_fields
+
+    def watch(table, idx, fields):
+        seen.append((table.shape[0], table.shape[1], idx))
+        return fetch(table, idx, fields)
+    sp.gather_fields = watch
+    try:
+        out = fn()
+    finally:
+        sp.gather_fields = fetch
+    return out, [(t, w, x.clone()) for t, w, x in seen]
+
+
+def k2_ids(cornell, spheres, big, million, camera, mcam):
+    """The ids that the renders feed K2: the 512^2 flagship's primary hit ids
+    (its first tri-pack fetch) and NEE light ids (its first light-pack
+    fetch) on Cornell, the primary hit ids of the spheres scene, and on the
+    50k and 1M scenes (512^2, depth 3) the hit ids of segment 0 and of
+    segment 2, a bounce. Returns {name: ids}."""
+    from pbrpathtracer_tpu_torch import RenderConfig, render
+    from pbrpathtracer_tpu_torch.ops.shadepack import (LIGHT_PACK_WIDTH,
+                                                       TRI_PACK_WIDTH)
+    fcfg = RenderConfig(**FLAGSHIP)
+    mcfg = RenderConfig(width=RUNG3_SIZE, height=RUNG3_SIZE, max_depth=3,
+                        spp=1)
+    ids = {}
+    for name, scene, cam, cfg in (("cornell", cornell, camera, fcfg),
+                                  ("spheres", spheres, camera, fcfg),
+                                  ("50k", big, mcam, mcfg),
+                                  ("1M", million, mcam, mcfg)):
+        _, seen = capture_fetches(lambda: render(scene, cam, cfg))
+        tri = [x for _, w, x in seen if w == TRI_PACK_WIDTH]
+        require(len(tri) >= 3, f"{name}: {len(tri)} tri-pack fetches")
+        ids[f"{name}/primary"] = tri[0]
+        ids[f"{name}/segment 2"] = tri[2]
+        if name == "cornell":
+            ids["cornell/lights"] = next(x for _, w, x in seen
+                                         if w == LIGHT_PACK_WIDTH)
+    return ids
+
+
+def k2_reading(name, table, idx, smi_line, reps=20):
+    """K2 at one shape: bit-equal to its plain version, then its kernel alone
+    (``torch.profiler``, the device's own time over ``reps`` calls), its
+    call (CUDA events over ``reps`` back-to-back calls), the plain version,
+    ``torch.index_select(table.T, 1, idx)`` (kernel alone and call; only on
+    ids in range, which it requires) and the bound. Returns the readings."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.packgather import (
+        gather_rows_t, gather_rows_t_plain)
+    T, W = table.shape
+    err = compare_k2(name, table, idx)
+    in_range = bool(((idx >= 0) & (idx < T)).all())
+    table_t = table.T
+
+    def lib():
+        return torch.index_select(table_t, 1, idx)
+
+    names = {}
+
+    def alone(what, fn):
+        """Device milliseconds per call over ``reps`` calls, by the
+        profiler; None where it delivered no device events."""
+        def calls():
+            for _ in range(reps):
+                fn()
+        per = device_kernels(calls)
+        names[what] = sorted({short_name(k) for k in per})
+        return (sum(us for _, us in per.values()) / reps / 1e3 if per
+                else None)
+    n_bytes = k2_bytes(idx, T, W)
+    out = {"shape": name, "T": T, "W": W, "N": idx.shape[0],
+           "rows": int(torch.unique(idx[(idx >= 0) & (idx < T)]).numel()),
+           "kernel_ms": alone("K2", lambda: gather_rows_t(table, idx)),
+           "ms": cuda_ms(lambda: gather_rows_t(table, idx), reps),
+           "plain_ms": cuda_ms(lambda: gather_rows_t_plain(table, idx), reps),
+           "library_kernel_ms": (alone("index_select", lib) if in_range
+                                 else None),
+           "library_ms": cuda_ms(lib, reps) if in_range else None,
+           "bound_ms": bound_ms(n_bytes, 0)[0], "max_abs_err": err}
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+    print(f"timing K2 {name} ({smi_line}): T={T} W={W} N={out['N']} "
+          f"rows={out['rows']}: kernel alone {ms(out['kernel_ms'])}, per "
+          f"call {ms(out['ms'])}, plain {ms(out['plain_ms'])}, index_select "
+          f"kernel alone {ms(out['library_kernel_ms'])} / per call "
+          f"{ms(out['library_ms'])}, bound {ms(out['bound_ms'])} by bytes "
+          f"({n_bytes / 1e6:.2f} MB); device kernels {names}", flush=True)
+    return out
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of ``fn``: a host clock over ``calls``
+    calls, the device synchronised at the end."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def k2_phase(cornell, spheres, big, million, camera, mcam, smi_line):
+    """Phase 29: K2 at every shape its paths give it (the tri packs of
+    Cornell, the spheres, 50k and 1M scenes on primary hit ids and, at the
+    large packs, on a bounce segment's ids; the light pack on NEE light ids;
+    the (v0, e1, e2) tables at W = 9; the uv-opacity pack at W = 7, which no
+    scene of this script launches: none has an opacity texture), each held
+    bit for bit against its plain version and timed; then the host
+    microseconds of one ``gather_fields`` call without and with a graph.
+    Uses only what every tree of the port has, so that it can time a parent
+    (``--k2 --root``). Returns (the readings by shape, the host readings)."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.packgather import gather_rows_t
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    from pbrpathtracer_tpu_torch.ops.intersect_vjp import TRI9_FIELDS
+    ids = k2_ids(cornell, spheres, big, million, camera, mcam)
+
+    def tri9(scene):
+        g = scene.geom
+        return torch.cat([g.v0, g.e1, g.e2], dim=1)
+    packs = {"cornell": sp.build_tri_pack(cornell),
+             "spheres": sp.build_tri_pack(spheres),
+             "50k": sp.build_tri_pack(big), "1M": sp.build_tri_pack(million)}
+    shapes = [(f"{s} tri pack/{kind}", packs[s], ids[f"{s}/{kind}"])
+              for s, kind in (("cornell", "primary"), ("spheres", "primary"),
+                              ("50k", "primary"), ("50k", "segment 2"),
+                              ("1M", "primary"), ("1M", "segment 2"))]
+    lights = sp.build_light_pack(cornell)
+    shapes.append(("cornell light pack/NEE light ids", lights,
+                   ids["cornell/lights"]))
+    shapes += [(f"{s} tri9/primary", tri9(scene), ids[f"{s}/primary"])
+               for s, scene in (("cornell", cornell), ("50k", big),
+                                ("1M", million))]
+    uv = sp.build_uv_opacity_pack(cornell)
+    shapes.append(("cornell uv-opacity pack/primary (no path)", uv,
+                   ids["cornell/primary"]))
+    readings = [k2_reading(*shape, smi_line) for shape in shapes]
+    del packs
+
+    # the host's part of one fetch: at 4,096 lanes the device's part is
+    # small, so the host clock reads the call itself
+    prim = ids["cornell/primary"][:4096].contiguous()
+    fetches = {"tri pack W=55": (sp.build_tri_pack(cornell), sp.TRI_FIELDS,
+                                 prim),
+               "light pack W=13": (lights, sp.LIGHT_FIELDS,
+                                   ids["cornell/lights"][:4096].contiguous()),
+               "tri9 W=9": (tri9(cornell), TRI9_FIELDS, prim)}
+    host = {}
+    for what, (table, fields, lid) in fetches.items():
+        graph = table.clone().requires_grad_(True)
+        host[what] = {
+            "gather_fields, no graph": host_us(
+                lambda: sp.gather_fields(table, lid, fields)),
+            "gather_fields, graph": host_us(
+                lambda: sp.gather_fields(graph, lid, fields)),
+            "gather_rows_t": host_us(lambda: gather_rows_t(table, lid)),
+            "index_select": host_us(
+                lambda: torch.index_select(table.T, 1, lid))}
+    print(f"host us per call, N=4096, 1000 calls ({smi_line}): "
+          + " | ".join(f"{w}: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in h.items())
+                       for w, h in host.items()), flush=True)
+    return readings, host
+
+
+def k2_edge_cases(dev, rs):
+    """K2 bit for bit on what no render gives it, at W = 55 and 9: the
+    largest table that is staged and one row more (read in place), each
+    with N % 4 != 0, N under one warp's tile, N = 0, every id out of range,
+    a table and ids that start 4 bytes past a 16-byte boundary. Returns the
+    max error."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels.packgather import (FWD_STAGE_BYTES,
+                                                            fwd_path)
+    err = 0.0
+    for W in (55, 9):
+        top = FWD_STAGE_BYTES // (4 * W) - 1
+        for T in (top, top + 1):
+            flat = torch.tensor(rs.normal(size=(T + 1) * W),
+                                dtype=torch.float32, device=dev)
+            table = flat[:T * W].view(T, W)
+            ids = random_ids(rs, T, dev)
+            out = torch.tensor(rs.choice([-1, T, T + 3, -2 ** 31], N_RAYS),
+                               dtype=torch.int32, device=dev)
+            what = f"W={W} T={T} ({fwd_path(T, W)})"
+            for name, tab, i in (
+                    ("", table, ids), (f", N={N_RAYS - 5}", table,
+                                       ids[:N_RAYS - 5]),
+                    (", N=31", table, ids[:31]), (", N=0", table, ids[:0]),
+                    (", all out of range", table, out),
+                    (", table 4 bytes past 16", flat[1:T * W + 1].view(T, W),
+                     ids),
+                    (", ids 4 bytes past 16", table, ids[1:N_RAYS - 3])):
+                err = max(err, compare_k2(what + name, tab, i))
+    return err
+
+
+def k2_main(root):
+    """``python3 chip_smoke.py --k2 [--root TREE]``: phase 29 alone, on the
+    port that lies under TREE (this checkout by default), so that two trees
+    are timed by the same code in one call. Prints its readings as JSON."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, os.path.abspath(root))
+    from pbrpathtracer_tpu_torch import Camera, builders
+    from pbrpathtracer_tpu_torch.kernels import native
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (
+        mesh_scene, mesh_scene_camera, million_tri_scene)
+    dev = torch.device("cuda", 0)
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    t0 = time.time()
+    native.build()
+    native.load()
+    print(f"K2 alone on {os.path.abspath(root)}: {smi_line}, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    readings, host = k2_phase(
+        builders.cornell_box(), builders.cornell_spheres_scene(),
+        mesh_scene(50_000), million_tri_scene(),
+        Camera.make(**CAM_POSE).to(dev), mesh_scene_camera().to(dev),
+        smi_line)
+    print(json.dumps({"root": os.path.abspath(root), "device": smi_line,
+                      "k2": readings, "host_us": host}), flush=True)
+
+
 def sharded_phases(dev, smi_line, cornell, camera, k4, rs, workers):
     """Phases 24-28. Returns (the launch counts per path for the kernels
     line, K2's max error at W = 9)."""
@@ -2522,6 +2778,12 @@ def main():
                                            rs, workers)
     app_counts.update(shard_counts)
     k2_err = max(k2_err, k2_err9)
+    # ---- 29. K2 at the shapes of its paths, and its edge cases ----
+    k2_shapes, k2_host = k2_phase(cornell, spheres, k4["scene"],
+                                  k4["million"], camera, k4["camera"],
+                                  smi_line)
+    k2_err = max(k2_err, k2_edge_cases(dev, rs),
+                 *(r["max_abs_err"] for r in k2_shapes))
     # ---- 18. what a query, a render and a gradient launch ----
     # (last, so that the profiler cannot weigh on any time above)
     from pbrpathtracer_tpu_torch.kernels.packgather import gather_rows_t_bwd
@@ -2619,8 +2881,10 @@ def main():
          "source": "pbrpathtracer_tpu_torch/csrc/packgather.cu",
          "replaces": "pbrpathtracer_tpu/kernels/packgather_pallas.py:92",
          "launches": launches["gather_rows_t"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "ms": k2_ms, "kernel_ms": k2_shapes[0]["kernel_ms"],
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib_ms,
+         "shapes": k2_shapes, "host_us": k2_host,
          "launches_by_path": by_path(
              "gather_rows_t", flagship=launches["gather_rows_t"],
              flagship_fwd_bwd=bwd_launches["gather_rows_t"])},
@@ -2653,5 +2917,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-worker"]:
         shard_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+    elif sys.argv[1:2] == ["--k2"]:
+        k2_main(sys.argv[3] if sys.argv[2:3] == ["--root"] else REPO)
     else:
         main()

@@ -48,9 +48,10 @@ def from_reference(scene, camera=None, device: str | torch.device = "cuda"):
 
 
 def params_from_reference(params: dict,
-                          device: str | torch.device = "cpu") -> dict:
+                          device: str | torch.device = "cuda") -> dict:
     """Convert a JAX-package params dict (``diff.params.get_params``) to the
-    port's, key for key and bit for bit: fresh tensors on ``device``, which a
+    port's, key for key and bit for bit: fresh tensors on ``device`` (the
+    card unless the caller names another, as ``from_reference``), which a
     training step may update in place."""
     return {k: torch.from_numpy(np.array(v)).to(device)
             for k, v in params.items()}

@@ -5,16 +5,40 @@
 // _fwd_kernel, launched by _run_fwd through gather_rows_t: out[w, n] =
 // table[idx[n], w] for 0 <= idx[n] < T, else 0, into a field-major f32[W, N]
 // block. The shading path fetches every per-lane triangle, material and
-// light attribute through it, one wide row per lane.
+// light attribute through it, one wide row per lane: W = 55 (tri pack), 13
+// (light pack), 9 (the winner rows of hit_vjp="winner"), 7 (uv-opacity), on
+// tables of 2 rows up to a million.
 //
-// What bounds it: a pure copy, ~4 W bytes written per lane against a table of
-// a few KB, so device-memory write bandwidth. The TPU kernel built a [T, TILE]
-// one-hot in VMEM and ran a matmul (capped at T <= 256); here:
-//   * one thread per lane n, looping over w, so a warp writes 32 consecutive
-//     floats of each output row (coalesced);
-//   * the whole table is staged in shared memory when it fits the default
-//     48 KB (the Cornell tri pack is 36 x 55 x 4 = 7.9 KB), else its rows are
-//     read through L1/L2 (the 588-row spheres pack, 129 KB). Any T works.
+// What bounds it: bytes. 4 N of ids, 4 W of table per distinct row the ids
+// name, 4 W N of output: the output dominates (57.7 MB at N = 262,144 and
+// W = 55 against 0.9 MB of rows that 512^2 primary hit ids name), so it is
+// device-memory write bandwidth wherever the rows are read once. The TPU
+// kernel built a [T, TILE] one-hot in VMEM and ran a matmul (capped at
+// T <= 256). Here the launcher picks one of two paths by the table's size
+// alone, and within the first its copy and store widths by alignment
+// (never by a failed launch; a refused launch returns its error):
+//   * a table of up to 226 KB with one zero row appended (the Cornell and
+//     spheres tri packs, every light pack, W = 9 tables up to 6,427 rows, uv
+//     packs up to 8,263) is staged in shared memory once per block: one TMA
+//     bulk copy (cp.async.bulk, completing on an mbarrier) of its
+//     16-byte-aligned part, the tail and the zero row by plain stores, while
+//     the first ids load. Blocks are persistent (the grid is the SM count
+//     times the occupancy that this staging allows) and walk groups of
+//     lanes, the next group's ids in flight; an id out of range reads the
+//     zero row. Where N % 4 == 0 and the ids and output are 16-byte aligned
+//     a thread takes 4 consecutive lanes: one int4 of ids, and per column 4
+//     shared loads and one 16-byte store, so a warp writes 512 contiguous
+//     bytes of each output row; else one lane and 4-byte stores;
+//   * a larger table (the 50k and 1M packs) is read in place, one thread per
+//     lane looping over the columns: a warp's load of a column touches the
+//     rows of its 32 lanes, whose sectors L1 keeps for the next columns, and
+//     each of its stores writes 128 contiguous bytes. On the ids the renders
+//     give (primary and bounce hit ids, whose misses all name row 0) this
+//     first design stays: a warp-cooperative fetch of whole rows into
+//     double-buffered shared tiles (cp.async, one instruction per 32
+//     consecutive floats of the rows laid end to end) measured slower on
+//     the H100 (PERF.md).
+// A pure copy: both paths are bit-equal to gather_rows_t_plain.
 //
 // Backward. Replaces packgather_pallas.py::_bwd_kernel, launched by _run_bwd
 // through _gather_bwd: d_table[t, w] = sum of cot[w, n] over the lanes n with
@@ -67,36 +91,202 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kMaxStagedBytes = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;        // the in-place forward; K3's zeroing
 
-template <bool kStage>
-__global__ void __launch_bounds__(kThreads)
-packgather_fwd_kernel(const int* __restrict__ idx,
-                      const float* __restrict__ table, int n, int n_rows,
-                      int width, float* __restrict__ out) {
-  extern __shared__ float s_table[];
-  const float* tab = table;
-  if (kStage) {
-    for (int k = threadIdx.x; k < n_rows * width; k += blockDim.x)
-      s_table[k] = table[k];
+// ---- forward (K2) ---------------------------------------------------------
+
+constexpr int kStageThreads = 512;
+// The largest staged table, its zero row included: the H100's 227 KB of
+// opt-in shared memory a block, less 1 KB for the barrier and alignment.
+// kernels/packgather.py's FWD_STAGE_BYTES is this number.
+constexpr size_t kStageMaxBytes = 226 * 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The table row of an id: itself, or `outside` for an id outside [0, T).
+__device__ __forceinline__ int row_of(int id, int n_rows, int outside) {
+  return (unsigned)id < (unsigned)n_rows ? id : outside;
+}
+
+// Small tables, staged. kVec lanes per thread and step: 4 (one int4 of ids,
+// one float4 store per column) or 1. Row n_rows of s_table is zeros; an id
+// outside [0, T) reads it. bulk_bytes (a multiple of 16, 0 for a table whose
+// base is not 16-byte aligned) go by one TMA bulk copy, the rest by plain
+// loads.
+template <int kVec>
+__global__ void __launch_bounds__(kStageThreads)
+fwd_staged_kernel(const int* __restrict__ idx, const float* __restrict__ table,
+                  int n, int n_rows, int width, int bulk_bytes,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(128) float s_table[];
+  __shared__ __align__(8) uint64_t s_bar;
+  const uint32_t bar = smem_addr(&s_bar);
+  if (bulk_bytes > 0) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+                   "r"(1)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
     __syncthreads();
-    tab = s_table;
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+          "r"(bulk_bytes)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];" ::"r"(smem_addr(s_table)),
+          "l"(table), "r"(bulk_bytes), "r"(bar)
+          : "memory");
+    }
   }
+  const int size = n_rows * width;
+  for (int k = bulk_bytes / 4 + threadIdx.x; k < size + width;
+       k += blockDim.x)
+    s_table[k] = k < size ? table[k] : 0.0f;
+
+  // the first step's ids load while the table arrives
+  const int groups = n / kVec;
+  const int step = gridDim.x * blockDim.x;
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  int4 ids4 = make_int4(0, 0, 0, 0);
+  int ids1 = 0;
+  if (g < groups) {
+    if constexpr (kVec == 4)
+      ids4 = reinterpret_cast<const int4*>(idx)[g];
+    else
+      ids1 = idx[g];
+  }
+  if (bulk_bytes > 0) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(bar), "r"(0)
+          : "memory");
+    }
+  }
+  __syncthreads();
+
+  for (; g < groups; g += step) {
+    if constexpr (kVec == 4) {
+      const int4 id = ids4;
+      if (g + step < groups) ids4 = reinterpret_cast<const int4*>(idx)[g + step];
+      const float* r0 = s_table + row_of(id.x, n_rows, n_rows) * width;
+      const float* r1 = s_table + row_of(id.y, n_rows, n_rows) * width;
+      const float* r2 = s_table + row_of(id.z, n_rows, n_rows) * width;
+      const float* r3 = s_table + row_of(id.w, n_rows, n_rows) * width;
+      float4* dst = reinterpret_cast<float4*>(out) + g;
+      const size_t cols = (size_t)groups;  // float4s per output row
+#pragma unroll 4
+      for (int w = 0; w < width; ++w)
+        dst[w * cols] = make_float4(r0[w], r1[w], r2[w], r3[w]);
+    } else {
+      const int id = ids1;
+      if (g + step < groups) ids1 = idx[g + step];
+      const float* r = s_table + row_of(id, n_rows, n_rows) * width;
+      float* dst = out + g;
+#pragma unroll 4
+      for (int w = 0; w < width; ++w) dst[(size_t)w * n] = r[w];
+    }
+  }
+}
+
+// Larger tables, in place: a thread per lane.
+__global__ void __launch_bounds__(kThreads)
+fwd_in_place_kernel(const int* __restrict__ idx,
+                    const float* __restrict__ table, int n, int n_rows,
+                    int width, float* __restrict__ out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const int id = idx[lane];
-  const bool ok = id >= 0 && id < n_rows;
-  const float* row = tab + (size_t)(ok ? id : 0) * width;
+  const int row = row_of(idx[lane], n_rows, -1);
+  const float* src = table + (size_t)(row < 0 ? 0 : row) * width;
   for (int w = 0; w < width; ++w)
-    out[(size_t)w * n + lane] = ok ? row[w] : 0.0f;
+    out[(size_t)w * n + lane] = row >= 0 ? src[w] : 0.0f;
+}
+
+// The staged kernels' grid. Per device: the SM count, and the kernels'
+// shared-memory attributes set once. Per (kernel, device, shared bytes):
+// blocks a SM can hold. Both are looked up under a lock, so that a launch
+// costs no runtime query after the first of its kind.
+constexpr int kMaxDevices = 64;
+constexpr int kOccSlots = 32;
+struct FwdDevice {
+  bool ready;
+  int sms;
+  int smem_optin;
+};
+struct FwdOcc {
+  const void* fn;
+  int device;
+  size_t smem;
+  int per_sm;
+};
+std::mutex g_fwd_mutex;
+FwdDevice g_fwd_device[kMaxDevices];
+FwdOcc g_fwd_occ[kOccSlots];
+int g_fwd_occ_next = 0;
+
+cudaError_t staged_blocks(const void* fn, size_t smem, int groups,
+                          int* blocks) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_fwd_mutex);
+  FwdDevice& d = g_fwd_device[device];
+  if (!d.ready) {
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &d.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    const int dyn = (int)(kStageMaxBytes < (size_t)d.smem_optin - 64
+                              ? kStageMaxBytes
+                              : (size_t)d.smem_optin - 64);
+    const void* fns[] = {(const void*)fwd_staged_kernel<4>,
+                         (const void*)fwd_staged_kernel<1>};
+    for (const void* f : fns) {
+      err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dyn);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            f, cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return err;
+    }
+    d.ready = true;
+  }
+  int per_sm = -1;
+  for (const FwdOcc& o : g_fwd_occ)
+    if (o.fn == fn && o.device == device && o.smem == smem) per_sm = o.per_sm;
+  if (per_sm < 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kStageThreads, smem);
+    if (err != cudaSuccess) return err;
+    g_fwd_occ[g_fwd_occ_next] = {fn, device, smem, per_sm};
+    g_fwd_occ_next = (g_fwd_occ_next + 1) % kOccSlots;
+  }
+  const int need = (groups + kStageThreads - 1) / kStageThreads;
+  const int held = d.sms * per_sm;  // 0: the launch fails
+  *blocks = need < held ? need : held;
+  return cudaSuccess;
 }
 
 // ---- backward (K3) --------------------------------------------------------
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 constexpr int kSortThreads = 256;
@@ -437,20 +627,40 @@ bwd_fixup_kernel(const int* __restrict__ keys, const int* __restrict__ row_a,
 
 }  // namespace
 
+// idx i32[n], table f32[n_rows, width], out f32[width, n]; all on the
+// current device. The path follows from the table's size, the staged
+// path's copy and store widths from alignment.
 extern "C" int pbr_packgather_fwd(const int* idx, const float* table, int n,
                                   int n_rows, int width, float* out,
-                                  void* stream) {
-  if (n == 0 || width == 0) return (int)cudaSuccess;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t bytes = (size_t)n_rows * width * sizeof(float);
-  if (bytes <= kMaxStagedBytes) {
-    packgather_fwd_kernel<true><<<blocks, kThreads, bytes,
-                                  (cudaStream_t)stream>>>(idx, table, n,
-                                                          n_rows, width, out);
+                                  void* stream_ptr) {
+  if (n <= 0 || width <= 0) return (int)cudaSuccess;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int blocks = 0;
+  cudaError_t err;
+  const size_t staged = ((size_t)n_rows + 1) * width * sizeof(float);
+  if (n_rows >= 0 && staged <= kStageMaxBytes) {
+    const bool vec = n % 4 == 0 && (uintptr_t)idx % 16 == 0 &&
+                     (uintptr_t)out % 16 == 0;
+    const int bulk =
+        (uintptr_t)table % 16 == 0
+            ? (int)(((size_t)n_rows * width * sizeof(float)) & ~(size_t)15)
+            : 0;
+    if (vec) {
+      err = staged_blocks((const void*)fwd_staged_kernel<4>, staged, n / 4,
+                          &blocks);
+      if (err != cudaSuccess) return (int)err;
+      fwd_staged_kernel<4><<<blocks, kStageThreads, staged, stream>>>(
+          idx, table, n, n_rows, width, bulk, out);
+    } else {
+      err = staged_blocks((const void*)fwd_staged_kernel<1>, staged, n,
+                          &blocks);
+      if (err != cudaSuccess) return (int)err;
+      fwd_staged_kernel<1><<<blocks, kStageThreads, staged, stream>>>(
+          idx, table, n, n_rows, width, bulk, out);
+    }
   } else {
-    packgather_fwd_kernel<false><<<blocks, kThreads, 0,
-                                   (cudaStream_t)stream>>>(idx, table, n,
-                                                           n_rows, width, out);
+    fwd_in_place_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(idx, table, n, n_rows, width, out);
   }
   return (int)cudaGetLastError();
 }

@@ -10,10 +10,17 @@ summed per id, out-of-range ids dropped; ``idx`` gets none. Unlike the TPU
 kernels these take a table of any height.
 
 Tensors on the CPU take the plain versions; CUDA tensors launch the kernels.
-The backward kernel orders the lanes by id (a stable radix sort written for
-it) and sums each id's run in double, in an order that the ids alone
-decide: no float atomics, so the same inputs give the same bits on every
-call, and its work and scratch do not grow with the table's height.
+The forward kernel stages a table of up to ``FWD_STAGE_BYTES`` (its zero row
+included) in shared memory once per block and reads a larger one in place
+(``fwd_path``). The backward kernel orders the lanes by id (a stable radix
+sort written for it) and sums each id's run in double, in an order that the
+ids alone decide: no float atomics, so the same inputs give the same bits
+on every call, and its work and scratch do not grow with the table's
+height.
+
+``gather_rows_t`` records a graph only when one is being recorded and the
+table requires grad; otherwise it is ``gather_rows_t_fwd``: the checks and
+one launch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ import dataclasses
 import torch
 
 from . import native
+
+# The largest table that the forward kernel stages in shared memory, its zero
+# row included (csrc/packgather.cu's kStageMaxBytes).
+FWD_STAGE_BYTES = 226 * 1024
 
 # The backward kernel's constants (csrc/packgather.cu checks them): lanes per
 # block of a sort pass, sorted lanes per block of the reduction, bits per
@@ -62,7 +73,24 @@ def bwd_plan(n: int, n_rows: int, width: int) -> BwdPlan:
         scratch_doubles=2 * chunks * width)
 
 
+def fwd_path(n_rows: int, width: int) -> str:
+    """The forward kernel's path for a table of T rows of W floats, as its
+    launcher picks it: "staged" where the table and a zero row fit
+    ``FWD_STAGE_BYTES`` of shared memory, else "in place". Within "staged",
+    the alignment of the table and the ids and N % 4 pick the copy and
+    store widths."""
+    return ("staged" if 4 * (n_rows + 1) * width <= FWD_STAGE_BYTES
+            else "in place")
+
+
 def _check_inputs(table, idx):
+    # the common case in one expression (the host's part of a launch is
+    # most of a small fetch's time), the reasons below
+    if (table.dim() == 2 and idx.dim() == 1 and table.dtype is torch.float32
+            and idx.dtype is torch.int32
+            and table.get_device() == idx.get_device()
+            and table.is_contiguous() and idx.is_contiguous()):
+        return
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"table must be [T, W] and idx [N], got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
@@ -78,7 +106,7 @@ def _check_inputs(table, idx):
 def _device_stream(t):
     if t.device.type != "cuda":
         raise ValueError(f"no pack-gather kernel for device {t.device}")
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def gather_rows_t_plain(table, idx):
@@ -106,16 +134,29 @@ def gather_rows_t_bwd_plain(idx, cot, n_rows: int):
 gather_rows_t_bwd_plain.launches = 0
 
 
-def _fwd(table, idx):
-    if idx.device.type == "cpu":
+_fwd_launch = None   # the library's pbr_packgather_fwd, after its first load
+
+
+def gather_rows_t_fwd(table, idx):
+    """``gather_rows_t`` without a graph: the checks, then the kernel for
+    CUDA tensors (one launch, counted on ``gather_rows_t.launches``) or the
+    plain version for CPU tensors."""
+    global _fwd_launch
+    _check_inputs(table, idx)
+    if not idx.is_cuda:
+        if idx.device.type != "cpu":
+            raise ValueError(f"no pack-gather kernel for device {idx.device}")
         return gather_rows_t_plain(table, idx)
-    stream = _device_stream(idx)
+    if _fwd_launch is None:
+        _fwd_launch = native.load().pbr_packgather_fwd
     T, W = table.shape
     N = idx.shape[0]
     out = torch.empty((W, N), dtype=torch.float32, device=idx.device)
-    err = native.load().pbr_packgather_fwd(
-        idx.data_ptr(), table.data_ptr(), N, T, W, out.data_ptr(), stream)
-    native.check(err, "gather_rows_t")
+    err = _fwd_launch(idx.data_ptr(), table.data_ptr(), N, T, W,
+                      out.data_ptr(),
+                      torch._C._cuda_getCurrentRawStream(idx.get_device()))
+    if err:
+        native.check(err, "gather_rows_t")
     gather_rows_t.launches += 1
     return out
 
@@ -163,7 +204,7 @@ class _GatherRowsT(torch.autograd.Function):
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
-        return _fwd(table, idx)
+        return gather_rows_t_fwd(table, idx)
 
     @staticmethod
     def backward(ctx, cot):
@@ -175,8 +216,9 @@ def gather_rows_t(table, idx):
     """``table[idx]`` transposed: f32[W, N], zero rows for ids outside
     [0, T). Differentiable w.r.t. ``table``. Kernels for CUDA tensors,
     plain versions for CPU tensors."""
-    _check_inputs(table, idx)
-    return _GatherRowsT.apply(table, idx)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _GatherRowsT.apply(table, idx)
+    return gather_rows_t_fwd(table, idx)
 
 
 gather_rows_t.launches = 0

@@ -14,10 +14,14 @@ Integer fields (mat_type, tex_index, light tri id) ride as exact floats
 
 ``gather_fields`` fetches the rows with the pack-gather kernel
 (``kernels/packgather.py``) as one field-major [W, N] block and hands out
-per-field views of it. Its backward is one concatenation of the field
-cotangents into the [W, N] block cotangent (``_SplitFields``, as the JAX
-package's ``_split_concat_vjp``): autograd's own reverse of k views would
-build a zero [W, N] block per field and add them.
+per-field views of it (one ``split``). A field spec is checked once per
+distinct spec and width; a bad one raises on every call. Without a graph
+(grad off, or a table that needs none) that is all; with one, a single
+``autograd.Function`` (``_GatherFields``) runs the same forward, and its
+backward concatenates the field cotangents into the [W, N] block cotangent
+(as the JAX package's ``_split_concat_vjp``) and hands it to the backward
+kernel: autograd's own reverse of k views would build a zero [W, N] block
+per field and add them.
 
 The pack builders are plain torch, so autograd carries the block's
 cotangent on through the material join ``m.diffuse[mid]`` to the
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.packgather import gather_rows_t
+from ..kernels.packgather import gather_rows_t_bwd, gather_rows_t_fwd
 from ..utils.constants import TEX_OPACITY
 
 
@@ -36,37 +40,70 @@ def _width(s) -> int:
     return s.stop - s.start if isinstance(s, slice) else 1
 
 
-class _SplitFields(torch.autograd.Function):
-    """Views of a [W, N] block per field; the backward concatenates the
-    field cotangents (zeros where a field got none)."""
-
-    @staticmethod
-    def forward(ctx, rows, fields):
-        ctx.fields = fields
-        return tuple(rows[s].T if isinstance(s, slice) else rows[s]
-                     for s in fields)
-
-    @staticmethod
-    def backward(ctx, *cots):
-        parts = [c.T if isinstance(s, slice) else c[None, :]
-                 for s, c in zip(ctx.fields, cots)]
-        return torch.cat(parts, dim=0), None
-
-
-def gather_fields(table, idx, fields) -> tuple:
-    """Per-lane attributes ``split(table[idx], fields)``: a slice field comes
-    back as an [N, w] view, an int field as [N]. ``fields`` must be ordered,
-    disjoint and cover the table's columns (the backward concatenates)."""
-    fields = tuple(fields)
+def _field_plan(fields, width: int) -> tuple:
+    """(the width of each field, whether each is an int field), after
+    checking that the fields are ordered, disjoint and cover the table's
+    ``width`` columns (the backward concatenates)."""
     start = 0
     for s in fields:
         if (s.start if isinstance(s, slice) else s) != start:
             raise ValueError("fields must be ordered, disjoint slices "
                              "covering the table's columns")
         start += _width(s)
-    if start != table.shape[1]:
-        raise ValueError(f"fields cover {start} of {table.shape[1]} columns")
-    return _SplitFields.apply(gather_rows_t(table, idx), fields)
+    if start != width:
+        raise ValueError(f"fields cover {start} of {width} columns")
+    return (tuple(_width(s) for s in fields),
+            tuple(not isinstance(s, slice) for s in fields))
+
+
+_PLANS = {}   # (fields, width) -> _field_plan's result, good specs only
+
+
+def _plan_of(fields, width: int) -> tuple:
+    try:
+        plan = _PLANS.get((fields, width))
+    except TypeError:  # slices hash from Python 3.12 on
+        return _field_plan(fields, width)
+    if plan is None:
+        plan = _PLANS[(fields, width)] = _field_plan(fields, width)
+    return plan
+
+
+def _split(rows, plan) -> tuple:
+    """Views of the [W, N] block: [N, w] per slice field, [N] per int
+    field."""
+    widths, ints = plan
+    return tuple(c.squeeze(1) if i else c
+                 for c, i in zip(rows.T.split(widths, 1), ints))
+
+
+class _GatherFields(torch.autograd.Function):
+    """K2 forward and the views; the backward concatenates the field
+    cotangents (zeros where a field got none) and runs K3. No gradient
+    w.r.t. the ids."""
+
+    @staticmethod
+    def forward(ctx, table, idx, plan):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.ints = table.shape[0], plan[1]
+        return _split(gather_rows_t_fwd(table, idx), plan)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        (idx,) = ctx.saved_tensors
+        cot = torch.cat([c[None, :] if i else c.T
+                         for c, i in zip(cots, ctx.ints)], dim=0)
+        return gather_rows_t_bwd(idx, cot, ctx.n_rows), None, None
+
+
+def gather_fields(table, idx, fields) -> tuple:
+    """Per-lane attributes ``split(table[idx], fields)``: a slice field comes
+    back as an [N, w] view, an int field as [N]. ``fields`` must be ordered,
+    disjoint and cover the table's columns (the backward concatenates)."""
+    plan = _plan_of(tuple(fields), table.shape[1])
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _GatherFields.apply(table, idx, plan)
+    return _split(gather_rows_t_fwd(table, idx), plan)
 
 
 # ---- tri_pack column layout -------------------------------------------------

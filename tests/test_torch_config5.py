@@ -66,7 +66,8 @@ def test_config5_fit_follows_the_jax_fit():
     mesh = make_mesh(device="cpu")
     np.testing.assert_allclose(
         render_sharded(scene, cam, cfg, mesh=mesh).numpy(), target, atol=1e-5)
-    params = broadcast_params(bridge.params_from_reference(start), mesh)
+    params = broadcast_params(
+        bridge.params_from_reference(start, device="cpu"), mesh)
     step = make_train_step(scene, cam, cfg,
                            functools.partial(torch.optim.Adam, lr=3e-2), mesh)
     losses = [float(step(params, torch.tensor(pix),

@@ -118,7 +118,7 @@ def test_segment_grads_match_jax(name):
     ro = torch.tensor(st["ro"], requires_grad=True)
     rd = torch.tensor(st["rd"], requires_grad=True)
     mats = {k: v.requires_grad_(True)
-            for k, v in params_from_reference(jmats).items()}
+            for k, v in params_from_reference(jmats, device="cpu").items()}
     scene = dataclasses.replace(ps, materials=dataclasses.replace(
         ps.materials, **{k.split(".", 1)[1]: v for k, v in mats.items()}))
     state = WavefrontState(**{**{k: torch.tensor(v) for k, v in st.items()},

@@ -130,19 +130,80 @@ def test_intersect_kernel_prepares_once_per_geometry(dev):
     assert a._k1_prepared[1] is prep and b._k1_prepared[1] is not prep
 
 
-@pytest.mark.parametrize("T,W,N", [(36, 55, 262_144), (2, 13, 1000),
-                                   (588, 55, 100_000), (1000, 55, 77),
-                                   (256, 7, 0), (49_970, 55, 262_144),
-                                   (1_000_000, 55, 65_536)])
+def _k2_shapes():
+    """Tables on both sides of the staging limit at W = 1, 7, 9, 13, 55
+    (the largest staged table and one row more), with N = 0, one lane short
+    of a tile, N % 4 != 0 and N % 4 == 0; and the shapes of the paths."""
+    shapes = [(36, 55, 262_144), (2, 13, 1000), (588, 55, 100_000),
+              (1000, 55, 77), (256, 7, 0), (49_970, 55, 262_144),
+              (1_000_000, 55, 65_536)]
+    for W in (1, 7, 9, 13, 55):
+        top = KP.FWD_STAGE_BYTES // (4 * W) - 1
+        shapes += [(T, W, N) for T in (top, top + 1)
+                   for N in (0, 31, 4099, 262_139, 262_144)]
+    return shapes
+
+
+@pytest.mark.parametrize("T,W,N", _k2_shapes())
 def test_packgather_kernel_matches_plain(dev, T, W, N):
-    """Tables that fit the 48 KB staging limit and tables that do not, up
-    to the tri packs of the 50k and 1M mesh scenes."""
-    rs = np.random.RandomState(T)
+    """Staged tables and tables read in place, up to the tri packs of the
+    50k and 1M mesh scenes, ids in and out of range: bit-equal."""
+    rs = np.random.RandomState(T + W + N)
     table = torch.tensor(rs.randn(T, W), dtype=torch.float32, device=dev)
     idx = rs.randint(-2, T + 2, N)
     idx = torch.tensor(idx, dtype=torch.int32, device=dev)
     out = KP.gather_rows_t(table, idx)
+    assert out.shape == (W, N) and out.is_contiguous()
     assert torch.equal(out, KP.gather_rows_t_plain(table, idx))
+
+
+@pytest.mark.parametrize("kind", ["all out of range", "unaligned table",
+                                  "unaligned ids"])
+@pytest.mark.parametrize("path", ["staged", "in place"])
+@pytest.mark.parametrize("W", [9, 55])
+def test_packgather_kernel_edge_cases(dev, kind, path, W):
+    """Every id out of range; a table and ids that start 4 bytes past a
+    16-byte boundary (views into larger buffers: no bulk copy, no int4
+    loads of ids)."""
+    top = KP.FWD_STAGE_BYTES // (4 * W) - 1
+    T = top if path == "staged" else top + 1
+    assert KP.fwd_path(T, W) == path
+    N = 262_144
+    rs = np.random.RandomState(W)
+    base = torch.tensor(rs.randn(T * W + 1), dtype=torch.float32, device=dev)
+    table = base[:T * W].view(T, W)
+    ids = torch.tensor(rs.randint(-2, T + 2, N + 1), dtype=torch.int32,
+                       device=dev)
+    idx = ids[:N]
+    if kind == "all out of range":
+        idx = torch.tensor(rs.choice([-1, T, T + 3, -(2 ** 31)], N),
+                           dtype=torch.int32, device=dev)
+    elif kind == "unaligned table":
+        table = base[1:].view(T, W)
+        assert table.data_ptr() % 16 != 0
+    else:
+        idx = ids[1:]
+        assert idx.data_ptr() % 16 != 0
+    out = KP.gather_rows_t(table, idx)
+    assert torch.equal(out, KP.gather_rows_t_plain(table, idx))
+    if kind == "all out of range":
+        assert not out.any()
+
+
+def test_packgather_kernel_on_a_bounce_segment(dev):
+    """The ids that a bounce (segment 2) of a 50k-scene render fetches: the
+    tri pack read in place, bit-equal."""
+    from chip_smoke import capture_fetches
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    scene = mesh_scene(50_000)
+    cfg = RenderConfig(width=128, height=128, max_depth=3, spp=1)
+    _, seen = capture_fetches(lambda: render(scene, mesh_scene_camera(),
+                                             cfg))
+    ids = [x for _, w, x in seen if w == sp.TRI_PACK_WIDTH][2]
+    table = sp.build_tri_pack(scene)
+    assert KP.fwd_path(*table.shape) == "in place"
+    assert torch.equal(KP.gather_rows_t(table, ids),
+                       KP.gather_rows_t_plain(table, ids))
 
 
 def test_packgather_rejects_mixed_devices(dev):

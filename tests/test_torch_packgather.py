@@ -19,6 +19,7 @@ from pbrpathtracer_tpu.scene import builders as jb
 from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.kernels import packgather as K
 from pbrpathtracer_tpu_torch.ops import shadepack as psp
+from pbrpathtracer_tpu_torch.ops.intersect_vjp import TRI9_FIELDS
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -75,13 +76,16 @@ def test_backward_takes_the_plain_version_on_cpu():
                                   np.repeat(counts[:, None], 55, axis=1))
 
 
-@pytest.mark.parametrize("pack", ["tri", "light"])
+@pytest.mark.parametrize("pack", ["tri", "light", "tri9", "uv_opacity"])
 def test_gather_fields_backward_matches_jax(pack):
-    """The single-concatenate backward against the JAX gather_fields
-    gradient, over every field (integer fields included)."""
+    """The single-concatenate backward of the one ``autograd.Function``
+    against the JAX gather_fields gradient, over every field (integer
+    fields included)."""
     rs = np.random.RandomState(5)
-    fields = {"tri": jsp.TRI_FIELDS, "light": jsp.LIGHT_FIELDS}[pack]
-    W = {"tri": jsp.TRI_PACK_WIDTH, "light": jsp.LIGHT_PACK_WIDTH}[pack]
+    fields = {"tri": jsp.TRI_FIELDS, "light": jsp.LIGHT_FIELDS,
+              "tri9": TRI9_FIELDS, "uv_opacity": psp.UV_OPACITY_FIELDS}[pack]
+    W = {"tri": jsp.TRI_PACK_WIDTH, "light": jsp.LIGHT_PACK_WIDTH,
+         "tri9": 9, "uv_opacity": 7}[pack]
     T, N = 36, 700
     table, idx = _case(W, T, W, N, out_of_range=True)
     cots = [rs.randn(N, s.stop - s.start) if isinstance(s, slice)
@@ -95,6 +99,7 @@ def test_gather_fields_backward_matches_jax(pack):
     ref = np.asarray(jax.grad(j_loss)(jnp.asarray(table)))
     tab = torch.tensor(table, requires_grad=True)
     out = psp.gather_fields(tab, torch.tensor(idx), fields)
+    assert all(o.grad_fn.name() == "_GatherFieldsBackward" for o in out)
     sum((o * torch.tensor(c)).sum() for o, c in zip(out, cots)).backward()
     np.testing.assert_allclose(tab.grad.numpy(), ref, rtol=1e-6, atol=1e-5)
 
@@ -116,6 +121,115 @@ def test_gather_fields_rejects_fields_that_do_not_cover_the_table():
         psp.gather_fields(table, idx, psp.TRI_FIELDS[:-1])
     with pytest.raises(ValueError):
         psp.gather_fields(table, idx, (slice(0, 3), slice(4, 55)))
+
+
+FETCHES = {"tri": (psp.TRI_FIELDS, 55), "light": (psp.LIGHT_FIELDS, 13),
+           "tri9": (TRI9_FIELDS, 9), "uv_opacity": (psp.UV_OPACITY_FIELDS, 7)}
+
+
+@pytest.mark.parametrize("pack", sorted(FETCHES))
+def test_gather_fields_without_and_with_a_graph_give_identical_fields(pack):
+    """No graph (grad off, or a table without grad: plain views of the
+    block, no ``autograd.Function``) and a graph (one Function) give the
+    same fields, bit for bit, with the same shapes and strides."""
+    fields, W = FETCHES[pack]
+    table, idx = _case(8, 40, W, 333, out_of_range=True)
+    ids = torch.tensor(idx)
+    plain = psp.gather_fields(torch.tensor(table), ids, fields)
+    with torch.no_grad():
+        off = psp.gather_fields(torch.tensor(table, requires_grad=True), ids,
+                                fields)
+    with torch.inference_mode():
+        inf = psp.gather_fields(torch.tensor(table), ids, fields)
+    graph = psp.gather_fields(torch.tensor(table, requires_grad=True), ids,
+                              fields)
+    assert all(o.grad_fn is None for o in (*plain, *off, *inf))
+    assert all(o.grad_fn is not None for o in graph)
+    ref = jsp.gather_fields(jnp.asarray(table), jnp.asarray(idx), fields)
+    for a, b, c, d, r in zip(plain, off, inf, graph, ref):
+        assert a.shape == b.shape == c.shape == d.shape == r.shape
+        assert a.stride() == b.stride() == c.stride() == d.stride()
+        for x in (b, c, d):
+            assert torch.equal(a, x.detach())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+def test_bad_field_specs_raise_on_every_call():
+    """A checked spec is kept per (fields, width); a bad one is never kept,
+    so it raises on every call, also after a good spec of the same width
+    was kept."""
+    table, idx = (torch.tensor(x) for x in _case(9, 36, 55, 10))
+    psp.gather_fields(table, idx, psp.TRI_FIELDS)
+    assert (psp.TRI_FIELDS, 55) in psp._PLANS
+    bad = (psp.TRI_FIELDS[:-1], (slice(0, 3), slice(4, 55)),
+           psp.TRI_FIELDS + (55,), list(psp.TRI_FIELDS[1:]))
+    for _ in range(3):
+        for fields in bad:
+            with pytest.raises(ValueError):
+                psp.gather_fields(table, idx, fields)
+        with pytest.raises(ValueError):   # a good spec of another width
+            psp.gather_fields(table[:, :13].contiguous(), idx,
+                              psp.TRI_FIELDS)
+        psp.gather_fields(table, idx, list(psp.TRI_FIELDS))
+    assert not [k for k in psp._PLANS
+                if k[0] in bad or k == (psp.TRI_FIELDS, 13)]
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_launch_counters_count_one_per_call(graph):
+    """One forward launch per ``gather_fields`` / ``gather_rows_t`` call on
+    either path (here the plain version's counter: CPU tensors), one
+    backward launch per backward, and nothing on the kernels' counters."""
+    table, idx = _case(10, 36, 55, 256, out_of_range=True)
+    tab = torch.tensor(table, requires_grad=graph)
+    ids = torch.tensor(idx)
+    counters = (K.gather_rows_t, K.gather_rows_t_plain, K.gather_rows_t_bwd,
+                K.gather_rows_t_bwd_plain)
+    before = [f.launches for f in counters]
+    outs = [psp.gather_fields(tab, ids, psp.TRI_FIELDS) for _ in range(3)]
+    outs.append((K.gather_rows_t(tab, ids),))
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, 4, 0, 0]
+    if graph:
+        sum(o[0].sum() for o in outs).backward()
+        assert [f.launches - b for f, b in zip(counters, before)] == [
+            0, 4, 0, 4]
+
+
+@pytest.mark.parametrize("W", [1, 7, 9, 13, 55, 226])
+def test_fwd_path_follows_the_table_size(W):
+    """The largest staged table (its zero row included) at each width, and
+    one row more."""
+    t_max = K.FWD_STAGE_BYTES // (4 * W) - 1
+    assert K.fwd_path(t_max, W) == "staged"
+    assert K.fwd_path(1, W) == "staged"
+    assert K.fwd_path(t_max + 1, W) == "in place"
+    assert K.fwd_path(10 ** 6, W) == "in place"
+    assert 4 * (t_max + 2) * W > K.FWD_STAGE_BYTES
+
+
+def test_fwd_limits_are_the_kernel_source_s():
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(K.native.__file__), "..", "csrc",
+                            "packgather.cu")).read()
+    a, b = re.search(r"kStageMaxBytes = (\d+) \* (\d+);", src).groups()
+    assert int(a) * int(b) == K.FWD_STAGE_BYTES
+
+
+def test_params_from_reference_takes_the_card_unless_told():
+    """Like ``from_reference``, the parameters go to the card by default;
+    the CPU tests name ``device="cpu"``."""
+    import inspect
+    sig = inspect.signature(bridge.params_from_reference)
+    assert sig.parameters["device"].default == "cuda"
+    params = {"mat.diffuse": np.ones((2, 3), np.float32)}
+    out = bridge.params_from_reference(params, device="cpu")
+    assert out["mat.diffuse"].device.type == "cpu"
+    np.testing.assert_array_equal(out["mat.diffuse"].numpy(),
+                                  params["mat.diffuse"])
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            bridge.params_from_reference(params)
 
 
 def test_any_table_height():
