@@ -6,9 +6,11 @@ PNG export).
     python -m pbrpathtracer_tpu_torch render --builtin cornell --spp 32
     python -m pbrpathtracer_tpu_torch info scene.pts
     python -m pbrpathtracer_tpu_torch fit --builtin cornell --steps 50
+    python -m pbrpathtracer_tpu_torch bench
 
 ``render`` and ``fit`` run on ``--device`` (default ``cuda``, with torch's
 own error where there is no card; ``--device cpu`` asks for the CPU).
+``bench`` measures the card and has no CPU mode (``bench.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ import time
 
 EPILOG = ("The JAX package's --intersector is gone with its config field: "
           "the port picks the dense kernel for scenes of at most 2048 "
-          "triangles and the BVH kernel beyond. There is no bench "
-          "subcommand.")
+          "triangles and the BVH kernel beyond.")
 
 
 def _add_render_args(p):
@@ -171,6 +172,11 @@ def cmd_fit(args):
         print(f"saved fitted params -> {args.save_params}")
 
 
+def cmd_bench(args):
+    from .bench import main as bench_main
+    bench_main()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="pbrpathtracer_tpu_torch",
@@ -196,6 +202,10 @@ def main(argv=None):
     p.add_argument("--fit-camera", action="store_true")
     p.add_argument("--save-params")
     p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("bench", help="measure rays/s fwd+bwd on the card "
+                                     "(one JSON line)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     args.fn(args)

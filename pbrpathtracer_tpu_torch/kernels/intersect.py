@@ -201,6 +201,9 @@ def intersect_dense(geom: Geometry, ro, rd, t_lower=None, alive=None,
         torch.cuda.current_stream(ro.device).cuda_stream)
     native.check(err, "intersect_dense")
     intersect_dense.launches += 1
+    if native.launch_records is not None:
+        native.launch_records.append(("intersect_dense", {
+            "n": N, "alive": alive, "n_tris": geom.num_triangles}))
     return hit, idx, t, u, v
 
 

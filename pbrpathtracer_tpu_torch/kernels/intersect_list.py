@@ -121,6 +121,8 @@ class _Prepared:
     #                             None: the slot itself
     perm: torch.Tensor          # i32[T]: scene id of each slot
     depth: int                  # levels of wide nodes
+    bvh_nodes: int              # nodes of the binary BVH it was collapsed from
+    leaf_size: int              # its largest leaf
 
 
 def collapse_bvh(bounds_min, bounds_max, first, count, escape):
@@ -216,7 +218,8 @@ def _prepare(geom: Geometry, accel: FlatBVH | None) -> _Prepared:
     tris = torch.cat([geom.v0[p], zero, geom.e1[p], zero, geom.e2[p], zero],
                      dim=1)
     prep = _Prepared(nodes=torch.from_numpy(rec).to(dev),
-                     tris=tris.contiguous(), pos=pos, perm=perm, depth=depth)
+                     tris=tris.contiguous(), pos=pos, perm=perm, depth=depth,
+                     bvh_nodes=bvh.num_nodes, leaf_size=bvh.leaf_size)
     object.__setattr__(geom, "_k4_prepared", (accel, prep))
     return prep
 
@@ -389,6 +392,12 @@ def intersect_list(geom: Geometry, ro, rd, t_lower=None, alive=None,
         raise ValueError(f"no intersect kernel for device {ro.device}")
     out = _launch("pbr_intersect_bvh", geom, ro, rd, t_lower, alive, accel, 0)
     intersect_list.launches += 1
+    if native.launch_records is not None:
+        prep = _prepare(geom, accel)
+        native.launch_records.append(("intersect_list", {
+            "n": ro.shape[0], "alive": alive, "hit": out[0],
+            "n_nodes": prep.bvh_nodes, "n_tris": geom.num_triangles,
+            "leaf_size": prep.leaf_size}))
     return out
 
 

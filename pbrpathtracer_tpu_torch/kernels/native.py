@@ -31,6 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib = None
 
+# None, or the list into which every kernel wrapper appends (kernel, shapes)
+# where it launches: ``utils.roofline.record_launches`` opens one
+launch_records = None
+
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {

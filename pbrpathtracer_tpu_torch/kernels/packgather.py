@@ -158,6 +158,9 @@ def gather_rows_t_fwd(table, idx):
     if err:
         native.check(err, "gather_rows_t")
     gather_rows_t.launches += 1
+    if native.launch_records is not None:
+        native.launch_records.append(("gather_rows_t", {
+            "idx": idx, "n_rows": T, "width": W}))
     return out
 
 
@@ -191,6 +194,9 @@ def gather_rows_t_bwd(idx, cot, n_rows: int):
         out.data_ptr(), stream)
     native.check(err, "gather_rows_t_bwd")
     gather_rows_t_bwd.launches += 1
+    if native.launch_records is not None:
+        native.launch_records.append(("gather_rows_t_bwd", {
+            "n": N, "n_rows": n_rows, "width": W}))
     return out
 
 

@@ -97,17 +97,17 @@ def test_render_builtin_and_errors(tmp_path, scene_files):
     os.remove(scene_files[0])
     with pytest.raises(SystemExit, match="missing OBJ assets"):
         cli.main(["render", scene_files[1], "--device", "cpu"])
-    # the JAX CLI's --intersector and bench went with what they drove
-    for argv in (["render", "--builtin", "cornell", "--intersector", "bvh"],
-                 ["bench"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
+    # the JAX CLI's --intersector went with the config field it drove
+    with pytest.raises(SystemExit):
+        cli.main(["render", "--builtin", "cornell", "--intersector", "bvh"])
     if not torch.cuda.is_available():
-        # the default device is the card: torch's own error without one
-        with pytest.raises((AssertionError, RuntimeError),
-                           match="(?i)cuda|nvidia"):
-            cli.main(["render", "--builtin", "cornell", "--spp", "1",
-                      "--width", "8", "--height", "8"])
+        # the default device is the card, and bench measures only the card:
+        # torch's own error without one
+        for argv in (["render", "--builtin", "cornell", "--spp", "1",
+                      "--width", "8", "--height", "8"], ["bench"]):
+            with pytest.raises((AssertionError, RuntimeError),
+                               match="(?i)cuda|nvidia"):
+                cli.main(argv)
 
 
 def test_info(scene_files, capsys):
