@@ -4,6 +4,8 @@ sharded and measurement paths once on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 [--root TREE]   # phase 29 alone, on TREE's port
+    python3 chip_smoke.py --compiled           # phase 32 alone
+    python3 chip_smoke.py --latency [--root TREE]   # a new key's wait
 
 (``--root`` takes a tree of the port that has ``utils/roofline.py``, where
 the bounds are reckoned.)
@@ -117,7 +119,11 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                wrapper's, K3's device time by kernel at the Cornell and 50k
                packs, and the device kernels of one flagship render, of one
                512^2 render of the 50k scene with K4's share, and of one
-               512^2 material gradient of that scene with K3's share.
+               512^2 material gradient of that scene with K3's share. The
+               two renders replay captured graphs; in each, the trace's K1,
+               K4 and K2 kernels must number what the counters say
+               (``checked_kernels``), so that a replay which skipped or
+               doubled a kernel node shows.
 19. scene files -- into a temporary directory: ``export_scene_obj`` of the
                50k ``mesh_scene`` and of Cornell; a 64x64 PNG texture by the
                port's writer, read back bit-equal; an ``EditorScene`` that
@@ -234,7 +240,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                timings alone on another tree's port (a parent unpacked by
                ``git archive``), so that two trees are read by the same code.
 30. bench   -- ``bench.measure_flagship()`` at its full widths (the 512^2
-               depth-4 Cornell forward and fwd+bwd, the 512^2 depth-8
+               depth-4 Cornell forward, replayed from the captured sample,
+               and the eager fwd+bwd, the 512^2 depth-8
                translucent forward behind a lens, the 50k and 1M scenes built
                in phase 12 at 512^2 depth 3), with the counters at 0: its
                JSON line printed; rays/s > 0; no error key; both
@@ -252,6 +259,36 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                records; finite and lit; at 24x24 the card's image against
                the CPU's (at most 2% of pixels over 1e-3, the rest within
                1e-4 on average: the JAX test's rule against the oracle).
+32. compiled -- the forward that the JAX package compiles, replayed from
+               CUDA graphs (``engine/compiled.py``) against the eager render
+               (``eager_render``, a loop of ``render_sample``), each from an
+               empty cache: the flagship, cornell_spheres, the deep
+               translucent 512^2 depth 8 behind a lens, the curtained
+               Cornell 512^2 depth 5 4 spp, the 50k and the 1M scene at
+               512^2 depth 3, the 50k with ("sort", "block"), and passes of
+               a ``RenderSession`` on the loaded scene. Each: a 1-spp
+               render of a new key captures nothing, the second captures;
+               the compiled image (both calls, replays, and at a new seed)
+               equal to the eager one bit for bit (max |d| = 0); the
+               launches of a render by replays equal to the eager render's,
+               by the counters (K1 or K4, and K2, never a plain version); a
+               new seed replays without a capture; then eager and compiled
+               in turns, the medians of 10 (3 on the big scenes, 8 session
+               passes) by CUDA events and by host wall, the capture
+               seconds, and the peak memory of each (compiled: what the
+               graphs hold plus a replay's peak). Last, by
+               ``torch.profiler``, every compiled render's K1, K4 and K2
+               kernels in the trace against the counters, and the device
+               time of the flagship and 50k renders, eager and compiled.
+               One ``compiled:`` JSON line holds the readings.
+Every render above runs as a user calls it: on the card a forward render,
+session pass and bench forward step go through the captured sample (its
+first sample of a key eager, the second captured, the later ones replayed;
+phase 32), except where a phase reads what the eager program does (its
+launch shapes, its fetched ids), which renders by ``eager_render``.
+``--latency`` times what meets a new key (``latency_main``), on this
+checkout's port or another tree's, so that a parent and its change are
+read by the same code.
 Every large-scene run (phases 14-16) is driven with the launch counters at 0
 and must launch K4, never K1 (``intersect_dense``) and no plain version; so
 are the session and preview runs of phases 20 and 21, each with the kernels
@@ -1615,8 +1652,8 @@ def cli_phase(tmp, pts, n_triangles):
 def application_phases(dev, smi_line, big, cornell, spheres, camera,
                        before_cli):
     """Phases 19-23; ``before_cli()`` is called just before the CLI phase
-    starts its processes. Returns the launch counts per path for the
-    kernels line."""
+    starts its processes. Returns (the launch counts per path for the
+    kernels line, (the loaded scene, its editor's camera))."""
     from pbrpathtracer_tpu_torch import RenderConfig, RenderSession
     with tempfile.TemporaryDirectory() as tmp:
         ed, pts, loaded = scene_files_phase(tmp, big, cornell)
@@ -1656,7 +1693,8 @@ def application_phases(dev, smi_line, big, cornell, spheres, camera,
     return {"session, loaded scene, 8 passes": big_counts,
             "session, Cornell, 8 passes": box_counts,
             "preview, translucent scene": preview_counts["translucent"],
-            "preview, loaded scene": preview_counts["loaded"]}
+            "preview, loaded scene": preview_counts["loaded"]}, \
+        (loaded, ed.tracer_camera(device=dev))
 
 FLAGSHIP = dict(width=512, height=512, max_depth=4, spp=1, seed=0)
 CONFIG5_SIZE = 1024
@@ -2305,7 +2343,8 @@ def k2_ids(cornell, spheres, big, million, camera, mcam):
                                   ("spheres", spheres, camera, fcfg),
                                   ("50k", big, mcam, mcfg),
                                   ("1M", million, mcam, mcfg)):
-        _, seen = capture_fetches(lambda: render(scene, cam, cfg))
+        # eager: a replay of the captured sample calls no gather_fields
+        _, seen = capture_fetches(lambda: eager_render(scene, cam, cfg))
         tri = [x for _, w, x in seen if w == TRI_PACK_WIDTH]
         require(len(tri) >= 3, f"{name}: {len(tri)} tri-pack fetches")
         ids[f"{name}/primary"] = tri[0]
@@ -2681,10 +2720,10 @@ def opacity_phase(dev, smi_line):
             "the curtained Cornell has no opacity texture on the card")
     camera = Camera.make(**CAM_POSE).to(dev)
     cfg = RenderConfig(**CURTAINED)
-    with record_launches() as records:
+    with record_launches() as records:   # (eager: a replay records none)
         img, counts = counted_run(
             "curtained Cornell 512x512 depth 5 4 spp",
-            lambda: render(scene, camera, cfg),
+            lambda: eager_render(scene, camera, cfg),
             ("intersect_dense", "gather_rows_t"), ("intersect_list",))
     widths = {}
     for kernel, shapes in records:
@@ -2716,6 +2755,422 @@ def opacity_phase(dev, smi_line):
     require(outliers <= CURTAINED_OUTLIERS and rest < 1e-4,
             "the card's curtained Cornell differs from the CPU's")
     return counts, widths.get(7, 0)
+
+
+# Phase 32: renders timed per workload in turns, eager and compiled, after
+# the warm-up (the medians are read); fewer on the 50k and 1M scenes
+COMPILED_REPS, COMPILED_BIG_REPS, SESSION_PASSES = 10, 3, 8
+DEEP = dict(width=512, height=512, max_depth=8, spp=1, seed=0)
+LENS = dict(focal_dist=2.2, aperture=0.04)
+# the device kernel of each counted wrapper, by the start of its short name
+KERNEL_OF = {"intersect_dense": "intersect_dense_kernel",
+             "intersect_list": "bvh_intersect_kernel",
+             "gather_rows_t": "fwd_"}
+
+
+def eager_render(scene, camera, cfg, seed=None):
+    """What ``render`` returns, by a loop of the eager ``render_sample``:
+    the samples summed from zero, over ``cfg.spp``. On the card ``render``
+    replays captured graphs; this is the eager render beside it."""
+    import torch
+    from pbrpathtracer_tpu_torch.ops.integrator import render_sample
+    with torch.inference_mode():
+        accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                            device=scene.device)
+        for k in range(cfg.spp):
+            accum = accum + render_sample(scene, camera, cfg, k, seed=seed)
+        img = (accum / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    return img.clone()
+
+
+def checked_kernels(what, fn):
+    """``device_kernels`` of one call of ``fn``, after two unprofiled calls
+    (a render's key replays by then), held against the counters: in the
+    trace, the device kernels of K1, K4 and K2 (``KERNEL_OF``) number what
+    the wrappers counted over that call, replays included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pbrpathtracer_tpu_torch.kernels import native
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, moved = native.launches_during(fn)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            count, us = out.get(ev.name, (0, 0.0))
+            out[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
+    require(out, f"{what}: the profiler delivered no device kernel")
+    counted = {f.__name__: n for f, n in moved.items()}
+    traced = {w: sum(c for k, (c, _) in out.items()
+                     if short_name(k).startswith(kernel))
+              for w, kernel in KERNEL_OF.items()}
+    require(all(traced[w] == counted.get(w, 0) for w in KERNEL_OF),
+            f"{what}: device kernels {traced} in the trace, the counters "
+            f"say {counted}")
+    return out
+
+
+def timed_turns(fns, reps):
+    """{name: (median CUDA-event ms, median host-wall ms)} of the calls in
+    ``fns``, called in turns ``reps`` times, each synchronized."""
+    import statistics
+    import torch
+    ev = {k: [] for k in fns}
+    wall = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t0) * 1e3)
+            ev[k].append(start.elapsed_time(end))
+    return {k: (statistics.median(ev[k]), statistics.median(wall[k]))
+            for k in fns}
+
+
+def wall_s(fn):
+    """(fn's result, its host-wall seconds, synchronized)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def peak_above(fn):
+    """MB that one call allocates above what is held before it, at its
+    peak."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def max_abs(a, b):
+    return float((a - b).abs().max())
+
+
+def compiled_reading(name, scene, camera, cfg, reps, launched, never,
+                     smi_line):
+    """Phase 32 on one render workload, from an empty cache: the eager
+    render (a ``render_sample`` loop), then ``render`` twice: its first
+    sample of the key eager (a 1-spp render captures nothing), its second
+    the warm-up and capture; then replays, bit-equal to the eager render
+    with its launches, a new seed without a recapture, times in turns,
+    peak memory. Returns (the replay render's counts, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch import render
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    SAMPLES.clear()
+    captures = SAMPLES.captures   # the process's count so far
+    eager, ecounts = counted_run(
+        f"{name}, eager", lambda: eager_render(scene, camera, cfg),
+        launched, never)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s = wall_s(lambda: render(scene, camera, cfg))
+    require(cfg.spp > 1 or SAMPLES.captures == captures,
+            f"{name}: a one-shot 1-spp render captured")
+    second, second_s = wall_s(lambda: render(scene, camera, cfg))
+    capture_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    entry = SAMPLES.entry(scene, camera, cfg)
+    require(entry is not None and SAMPLES.captures == captures + 1,
+            f"{name}: {SAMPLES.captures - captures} captures in two "
+            "renders")
+    replay, ccounts = counted_run(f"{name}, compiled replays",
+                                  lambda: render(scene, camera, cfg),
+                                  launched, never)
+    other = cfg.replace(seed=cfg.seed + 1)
+    moved = render(scene, camera, other)
+    moved_eager = eager_render(scene, camera, other)
+    err = max(max_abs(first, eager), max_abs(second, eager),
+              max_abs(replay, eager), max_abs(moved, moved_eager))
+    recaptured = SAMPLES.captures - captures - 1
+    require(err == 0, f"{name}: compiled differs from eager by {err}")
+    require(ccounts == ecounts, f"{name}: compiled launches {ccounts} != "
+            f"eager {ecounts}")
+    require(recaptured == 0, f"{name}: a new seed captured again")
+    require(not torch.equal(moved, eager), f"{name}: the seed changed "
+            "nothing")
+    del first, second, replay, moved, moved_eager
+    torch.cuda.synchronize()
+    held_mb = (torch.cuda.memory_allocated() - base) / 2 ** 20
+    times = timed_turns({
+        "eager": lambda: eager_render(scene, camera, cfg),
+        "compiled": lambda: render(scene, camera, cfg)}, reps)
+    mb_eager = peak_above(lambda: eager_render(scene, camera, cfg))
+    mb_compiled = held_mb + peak_above(lambda: render(scene, camera, cfg))
+    reading = {
+        "workload": name, "graphs": len(entry.graphs),
+        "captures": 1, "recaptures_new_seed": recaptured,
+        "capture_s": round(entry.capture_s, 4),
+        "first_call_s": round(first_s, 4),
+        "second_call_s": round(second_s, 4),
+        "capture_peak_mb": round(capture_peak, 1),
+        "max_abs_err": err, "launches_equal": ccounts == ecounts,
+        "eager_ms": [round(x, 3) for x in times["eager"]],
+        "compiled_ms": [round(x, 3) for x in times["compiled"]],
+        "peak_mb_eager": round(mb_eager, 1),
+        "peak_mb_compiled": round(mb_compiled, 1),
+        "held_mb_compiled": round(held_mb, 1), "reps": reps}
+    print(f"compiled {name} ({smi_line}): {len(entry.graphs)} graphs "
+          f"captured in {entry.capture_s:.3f} s (first render {first_s:.3f} "
+          f"s, second {second_s:.3f} s); max |d| vs eager {err}, launches "
+          f"equal; new seed recaptured {recaptured}; eager "
+          f"{times['eager'][0]:.3f} ms by CUDA events, "
+          f"{times['eager'][1]:.3f} ms host wall | compiled "
+          f"{times['compiled'][0]:.3f} / {times['compiled'][1]:.3f} ms "
+          f"(medians of {reps}); peak MB eager {mb_eager:.1f}, compiled "
+          f"{mb_compiled:.1f} ({held_mb:.1f} held by the graphs)",
+          flush=True)
+    return ccounts, reading
+
+
+def compiled_session_reading(scene, camera, cfg, smi_line):
+    """Phase 32's session: passes of the loaded 50k scene, a
+    ``RenderSession`` (its first pass eager, its second captured, replays
+    after) against eager passes (``render_sample`` added onto an
+    accumulation) in turns; the same accumulation bit for bit and the same
+    launches per pass. Returns (a replayed pass's counts, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch import RenderSession
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.ops.integrator import render_sample
+    SAMPLES.clear()
+    captures = SAMPLES.captures   # the process's count so far
+    b = RenderSession(scene=scene, camera=camera, cfg=cfg)
+    b.start()
+    eager = {"accum": torch.zeros_like(b.accum), "samples": 0}
+
+    def eager_pass():
+        with torch.inference_mode():
+            eager["accum"] = eager["accum"] + render_sample(
+                scene, camera, cfg, eager["samples"])
+        eager["samples"] += 1
+        torch.cuda.synchronize()   # as a session's step does
+    eager_pass()
+    _, first_s = wall_s(lambda: b.step(1))
+    require(SAMPLES.captures == captures,
+            "session: the first pass captured")
+    eager_pass()
+    _, second_s = wall_s(lambda: b.step(1))
+    entry = SAMPLES.entry(scene, camera.to(scene.device), cfg)
+    require(entry is not None, "session: the second pass captured nothing")
+    times = timed_turns({"eager": eager_pass,
+                         "compiled": lambda: b.step(1)}, SESSION_PASSES)
+    launched, never = ("intersect_list", "gather_rows_t"), ("intersect_dense",)
+    _, ecounts = counted_run("session pass, eager", eager_pass, launched,
+                             never)
+    _, ccounts = counted_run("session pass, compiled", lambda: b.step(1),
+                             launched, never)
+    err = max_abs(eager["accum"], b.accum)
+    require(eager["samples"] == b.samples == SESSION_PASSES + 3,
+            "session: a pass did not run")
+    require(err == 0, f"session: compiled passes differ by {err}")
+    require(ccounts == ecounts, f"session: launches {ccounts} != {ecounts}")
+    require(SAMPLES.captures == captures + 1,
+            "session: a pass captured again")
+    reading = {
+        "workload": f"session, loaded 50k scene, {SESSION_PASSES} passes",
+        "graphs": len(entry.graphs), "captures": 1,
+        "capture_s": round(entry.capture_s, 4),
+        "first_pass_s": round(first_s, 4),
+        "second_pass_s": round(second_s, 4), "max_abs_err": err,
+        "launches_equal": True,
+        "eager_ms": [round(x, 3) for x in times["eager"]],
+        "compiled_ms": [round(x, 3) for x in times["compiled"]],
+        "reps": SESSION_PASSES}
+    print(f"compiled session, loaded scene ({smi_line}): "
+          f"{len(entry.graphs)} graphs captured in {entry.capture_s:.3f} s "
+          f"(first pass {first_s:.3f} s, second {second_s:.3f} s); "
+          f"{b.samples} passes each, accumulations bit-equal, launches "
+          f"equal; per pass eager {times['eager'][0]:.3f} ms by CUDA events, "
+          f"{times['eager'][1]:.3f} ms host wall | compiled "
+          f"{times['compiled'][0]:.3f} / {times['compiled'][1]:.3f} ms "
+          f"(medians of {SESSION_PASSES})", flush=True)
+    return ccounts, reading
+
+
+def compiled_phase(cornell, spheres, big, million, camera, mcam, loaded,
+                   dev, smi_line):
+    """Phase 32: every forward path that the JAX package compiles, eager
+    against compiled. Returns the launch counts of the compiled runs, by
+    path, for the kernels line."""
+    import torch
+    from pbrpathtracer_tpu_torch import Camera, RenderConfig, render
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.scene.builders import translucent_scene
+    t0 = time.time()
+    k1 = (("intersect_dense", "gather_rows_t"), ("intersect_list",))
+    k4 = (("intersect_list", "gather_rows_t"), ("intersect_dense",))
+    big_cfg = RenderConfig(width=RUNG3_SIZE, height=RUNG3_SIZE, max_depth=3,
+                           spp=1)
+    work = [
+        ("flagship", cornell, camera, RenderConfig(**FLAGSHIP),
+         COMPILED_REPS, k1),
+        ("cornell_spheres", spheres, camera, RenderConfig(**FLAGSHIP),
+         COMPILED_REPS, k1),
+        ("deep translucent 512x512 depth 8", translucent_scene(),
+         Camera.make(**CAM_POSE, **LENS).to(dev), RenderConfig(**DEEP),
+         COMPILED_REPS, k1),
+        ("curtained Cornell 512x512 depth 5 4 spp", curtained_cornell(),
+         camera, RenderConfig(**CURTAINED), COMPILED_REPS, k1),
+        ("50k 512x512 depth 3", big, mcam, big_cfg, COMPILED_BIG_REPS, k4),
+        ("1M 512x512 depth 3", million, mcam, big_cfg, COMPILED_BIG_REPS,
+         k4),
+        ("50k 512x512 depth 3, sort + block", big, mcam,
+         big_cfg.replace(compact_wavefront="sort", pixel_order="block"),
+         COMPILED_BIG_REPS, k4),
+    ]
+    counts, readings = {}, []
+    for name, scene, cam, cfg, reps, (launched, never) in work:
+        c, r = compiled_reading(name, scene, cam, cfg, reps, launched, never,
+                                smi_line)
+        counts[f"compiled: {name}, one render by replays"] = c
+        readings.append(r)
+    scfg = RenderConfig(width=SESSION_SIZE, height=SESSION_SIZE, max_depth=3)
+    c, r = compiled_session_reading(*loaded, scfg, smi_line)
+    counts["compiled: session pass, loaded scene"] = c
+    readings.append(r)
+    # the card's own kernels in one compiled render, held against the
+    # counters, and the device time of one render, eager and compiled, on
+    # the flagship and the 50k (torch.profiler, after every timing above)
+    for (name, scene, cam, cfg, _, _), r in zip(work, readings):
+        modes = [("compiled", lambda: render(scene, cam, cfg))]
+        if name in ("flagship", "50k 512x512 depth 3"):
+            modes.append(("eager", lambda: eager_render(scene, cam, cfg)))
+        for key, fn in modes:
+            k = checked_kernels(f"{name}, {key}", fn)
+            r[f"device_kernels_{key}"] = sum(c for c, _ in k.values())
+            r[f"device_ms_{key}"] = round(
+                sum(us for _, us in k.values()) / 1e3, 4)
+        print(f"compiled {name}: the trace's K1, K4 and K2 kernels equal "
+              f"the counters; device time per render, "
+              + (f"eager {r['device_ms_eager']} ms in "
+                 f"{r['device_kernels_eager']} kernels | "
+                 if "device_ms_eager" in r else "")
+              + f"compiled {r['device_ms_compiled']} ms in "
+              f"{r['device_kernels_compiled']} kernels (torch.profiler)",
+              flush=True)
+    SAMPLES.clear()
+    torch.cuda.synchronize()
+    print("compiled: " + json.dumps(readings), flush=True)
+    print(f"phase 32 (compiled): {time.time() - t0:.1f} s", flush=True)
+    return counts
+
+
+def compiled_main():
+    """Phase 32 alone, with the scenes it needs (``--compiled``)."""
+    import torch
+    from pbrpathtracer_tpu_torch import Camera, builders
+    from pbrpathtracer_tpu_torch.kernels import native
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (
+        mesh_scene, mesh_scene_camera, million_tri_scene)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    dev = torch.device("cuda", 0)
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    native.load()
+    cornell = builders.cornell_box()
+    big = mesh_scene(50_000)
+    with tempfile.TemporaryDirectory() as tmp:
+        ed, _, loaded = scene_files_phase(tmp, big, cornell)
+    compiled_phase(cornell, builders.cornell_spheres_scene(), big,
+                   million_tri_scene(), Camera.make(**CAM_POSE).to(dev),
+                   mesh_scene_camera().to(dev),
+                   (loaded, ed.tracer_camera(device=dev)), dev, smi_line)
+    print(smi_line, flush=True)
+
+
+# --latency: what a user waits for where a key is new, timed the same way
+# on any tree of the port
+LATENCY_REPS, LATENCY_SPP = 5, 64
+
+
+def latency_main(root):
+    """``python3 chip_smoke.py --latency [--root TREE]``: on the port under
+    TREE (this checkout by default), the host-wall seconds, synchronized,
+    of what meets a new scene: a one-shot 1-spp render of a new key (the
+    flagship Cornell and the 50k scene at 512^2 depth 3, a material
+    replaced before each), a 64-spp render of a new key of the 50k scene,
+    and an editor session on the loaded 50k scene, where each edit (a
+    camera move) is followed by ``restart()`` and three passes, each
+    timed (the first with the restart). Medians and every reading, as
+    JSON."""
+    import statistics
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, os.path.abspath(root))
+    from pbrpathtracer_tpu_torch import (Camera, RenderConfig,
+                                         RenderSession, builders, render)
+    from pbrpathtracer_tpu_torch.kernels import native
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                          mesh_scene_camera)
+    dev = torch.device("cuda", 0)
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    native.build()
+    native.load()
+
+    def new_key(scene):
+        m = scene.materials
+        return dataclasses.replace(scene, materials=dataclasses.replace(
+            m, diffuse=m.diffuse.clone()))
+
+    def one_shots(scene, cam, cfg):
+        render(scene, cam, cfg)     # the kernels' first use, not timed
+        return [wall_s(lambda: render(new_key(scene), cam, cfg))[1]
+                for _ in range(LATENCY_REPS)]
+    cornell, big = builders.cornell_box(), mesh_scene(50_000)
+    camera = Camera.make(**CAM_POSE).to(dev)
+    mcam = mesh_scene_camera().to(dev)
+    big_cfg = RenderConfig(width=RUNG3_SIZE, height=RUNG3_SIZE, max_depth=3,
+                           spp=1)
+    out = {"root": os.path.abspath(root), "device": smi_line,
+           "one_shot_flagship_s": one_shots(cornell, camera,
+                                            RenderConfig(**FLAGSHIP)),
+           "one_shot_50k_s": one_shots(big, mcam, big_cfg),
+           f"render_{LATENCY_SPP}spp_50k_s": wall_s(lambda: render(
+               new_key(big), mcam, big_cfg.replace(spp=LATENCY_SPP)))[1]}
+    passes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the editor builds its scene from the files: they stay meanwhile
+        ed, _, _ = scene_files_phase(tmp, big, cornell)
+        s = RenderSession(ed, RenderConfig(width=SESSION_SIZE,
+                                           height=SESSION_SIZE, max_depth=3))
+        s.start()
+        s.step(3)
+        for i in range(LATENCY_REPS):
+            ed.move_camera(forward=0.01 * (1 if i % 2 else -1))
+            _, first = wall_s(lambda: (s.restart(), s.step(1)))
+            passes.append([first] + [wall_s(lambda: s.step(1))[1]
+                                     for _ in range(2)])
+        s.stop()
+    out["edit_then_passes_s"] = passes
+    for k in ("one_shot_flagship_s", "one_shot_50k_s"):
+        out[k[:-2] + "_median_s"] = statistics.median(out[k])
+    out["edit_then_pass_median_s"] = [statistics.median(p[i] for p in passes)
+                                      for i in range(3)]
+    print("latency: " + json.dumps(out), flush=True)
 
 
 def sharded_phases(dev, smi_line, cornell, camera, k4, rs, workers):
@@ -2985,8 +3440,9 @@ def main():
     # ---- 19-23. the application path: scene files, session, preview, GGX,
     # the command line (before phase 18, whose profiler runs last) ----
     workers = ShardWorkers()
-    app_counts = application_phases(dev, smi_line, k4["scene"], cornell,
-                                    spheres, camera, workers.start)
+    app_counts, loaded = application_phases(dev, smi_line, k4["scene"],
+                                            cornell, spheres, camera,
+                                            workers.start)
     # ---- 24-28. the sharded layers, config 5 and the hit_vjp modes ----
     shard_counts, k2_err9 = sharded_phases(dev, smi_line, cornell, camera, k4,
                                            rs, workers)
@@ -3031,7 +3487,10 @@ def main():
                  tri_pack.shape[0])
     k3_breakdown("50k tri pack, primary hit ids", k4["primary_ids"],
                  k4["cot"], k4["rows"])
-    per_render = device_kernels(lambda: render(cornell, camera, cfg))
+    # compiled (the render's key replays by the profiled call), and held
+    # against the counters
+    per_render = checked_kernels("flagship render",
+                                 lambda: render(cornell, camera, cfg))
     n_kernels = sum(c for c, _ in per_render.values())
     k1_kernels = sum(c for k, (c, _) in per_render.items()
                      if "intersect_dense_kernel" in k)
@@ -3039,8 +3498,8 @@ def main():
           f"{sum(us for _, us in per_render.values()) / 1e3:.3f} ms of device "
           f"time; {k1_kernels} of them K1 for {launches['intersect_dense']} "
           f"queries", flush=True)
-    per_fwd = device_kernels(lambda: render(k4["scene"], k4["camera"],
-                                            k4["cfg"]))
+    per_fwd = checked_kernels("50k render", lambda: render(
+        k4["scene"], k4["camera"], k4["cfg"]))
     fwd_us = sum(us for _, us in per_fwd.values())
     k4_n, k4_us = next(((c, us) for k, (c, us) in per_fwd.items()
                         if "bvh_intersect_kernel" in k), (0, 0.0))
@@ -3071,6 +3530,10 @@ def main():
         cornell, camera, k4, launches, bwd_launches, smi_line)
     curtained = "curtained Cornell 512x512 depth 5 4 spp"
     app_counts[curtained], k2_w7 = opacity_phase(dev, smi_line)
+    # ---- 32. the compiled forward against the eager render ----
+    app_counts.update(compiled_phase(cornell, spheres, k4["scene"],
+                                     k4["million"], camera, k4["camera"],
+                                     loaded, dev, smi_line))
 
     print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
           flush=True)
@@ -3145,5 +3608,9 @@ if __name__ == "__main__":
         shard_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     elif sys.argv[1:2] == ["--k2"]:
         k2_main(sys.argv[3] if sys.argv[2:3] == ["--root"] else REPO)
+    elif sys.argv[1:2] == ["--compiled"]:
+        compiled_main()
+    elif sys.argv[1:2] == ["--latency"]:
+        latency_main(sys.argv[3] if sys.argv[2:3] == ["--root"] else REPO)
     else:
         main()

@@ -9,7 +9,13 @@
     export_png                            -> PNG of a render
 
 Scenes are built on the card unless the caller names another device, and
-every call runs on its scene's device.
+every call runs on its scene's device. ``render`` and ``render_pts`` reach
+the compiled forward through ``ops.integrator.render``: on the card, with no
+autograd graph to record, their samples go through CUDA graphs
+(``engine/compiled.py``, the JAX package's ``_jit_render``): the first
+sample renders eagerly, the second is captured, the later ones replay, with
+the eager render's result bit for bit (``ops.integrator.render_sample`` is
+the eager sample). ``grad_render`` and ``fit`` are eager.
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ def grad_render(scene: Scene, camera: Camera, cfg: RenderConfig, target,
 
 def render_pts(pts_path: str, cfg: RenderConfig | None = None, spp=None,
                seed=None, device: str | torch.device = "cuda"):
-    """Load a .pts scene and render it on ``device``; returns (image,
-    editor, settings)."""
+    """Load a .pts scene and render it on ``device`` (compiled on the card,
+    as ``render``); returns (image, editor, settings)."""
     editor, settings = load_pts(pts_path)
     if settings["missing_objects"]:
         raise FileNotFoundError(

@@ -14,11 +14,15 @@ checked on the CPU.
 Timing: a QUEUED host loop, as the JAX package's: R back-to-back steps and
 one final ``torch.cuda.synchronize()``, at R and 2R, differenced, so that
 fixed costs (the first launch, the queue's ramp) cancel. In JAX that slope
-is device throughput, because a whole step queues on the device. Here it is
-not: the port's render is eager PyTorch and reads one flag back from the
-card per segment (``ops/integrator.py``, ``bool(state.alive.any())``), so
-the host issues each segment's operators while the card waits, and the
-slope is host-bound wall time per step. Beside it, ``device_ms_fwd`` and
+is device throughput, because a whole step queues on the device. The
+port's forward steps replay the sample captured in CUDA graphs
+(``engine/compiled.py``), as the JAX bench runs ``fwd_jit``: a graph per
+segment, the seed a device value, and between two segments one flag read
+back from the card (``ops/integrator.drive``), so the forward slope is the
+card's time plus one graph launch and one read-back per segment. The
+fwd+bwd step is eager PyTorch: the host issues each segment's operators
+while the card waits, and its slope is host-bound wall time per step.
+Beside them, ``device_ms_fwd`` and
 ``device_ms_fwdbwd`` are the card's busy time in one step: the sum of its
 kernels' durations in a ``torch.profiler`` trace (or, where the profiler
 delivers no device events, CUDA events around one step, idle time
@@ -59,6 +63,7 @@ import torch
 
 from .diff.loss import loss_and_grad
 from .diff.params import get_params
+from .engine.compiled import SAMPLES
 from .engine.config import RenderConfig
 from .kernels import intersect, intersect_list, packgather
 from .ops.integrator import render_sample
@@ -122,8 +127,18 @@ def flagship(device="cuda", width=WIDTH, height=HEIGHT):
 
 
 def fwd_step(scene, camera, cfg):
-    """step(seed): one forward sample, reduced to a scalar."""
-    return lambda s: torch.sum(render_sample(scene, camera, cfg, 0, seed=s))
+    """step(seed): one forward sample, reduced to a scalar. On the card it
+    goes through the captured sample with the seed as a device value (the
+    first step of a scene is eager, the second captures, the later ones
+    replay)."""
+    if scene.device.type != "cuda":
+        return lambda s: torch.sum(render_sample(scene, camera, cfg, 0,
+                                                 seed=s))
+
+    def step(s):
+        seed = torch.full((), s, dtype=torch.int64, device=scene.device)
+        return SAMPLES.sample(scene, camera, cfg, 0, seed, consume=torch.sum)
+    return step
 
 
 def fwdbwd_step(scene, camera, cfg, params, target):
@@ -143,7 +158,9 @@ def roofline_costs(scene, camera, cfg, live_segments):
     canonical schedule (module docstring), on the scene's device."""
     canon = cfg.replace(skip_dead_segments=False,
                         max_segments=max(live_segments, 1))
-    _, fwd = count_program(lambda: fwd_step(scene, camera, canon)(0))
+    # the eager forward: a replay dispatches no operator to count
+    _, fwd = count_program(
+        lambda: torch.sum(render_sample(scene, camera, canon, 0, seed=0)))
     params = get_params(scene, camera, materials=True)
     target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
     _, fwdbwd = count_program(lambda: fwdbwd_step(
@@ -308,8 +325,10 @@ def measure_flagship(extra_workloads=True, big_scenes=None):
             "device_kernels_fwd": kernels_fwd,
             "device_kernels_fwdbwd": kernels_fwdbwd,
             "timing": "queued-loop R-vs-2R slope of host wall time (fixed "
-                      "costs cancelled); host-bound: the eager render reads "
-                      "one flag back from the card per segment",
+                      "costs cancelled); the forward steps replay the "
+                      "sample captured in CUDA graphs (one graph and one "
+                      "flag read back per segment, the seed a device "
+                      "value); the fwd+bwd step is eager and host-bound",
             "roofline_graph": "canonical: the live segments only, "
                               "remat-hits for fwd+bwd; eager operators by "
                               "TorchDispatchMode, K1-K4 from their launch "

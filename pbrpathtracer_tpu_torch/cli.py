@@ -9,7 +9,9 @@ PNG export).
     python -m pbrpathtracer_tpu_torch bench
 
 ``render`` and ``fit`` run on ``--device`` (default ``cuda``, with torch's
-own error where there is no card; ``--device cpu`` asks for the CPU).
+own error where there is no card; ``--device cpu`` asks for the CPU). On
+the card ``render`` replays its samples from CUDA graphs captured at the
+second one (``api.render``; the time printed includes that capture).
 ``bench`` measures the card and has no CPU mode (``bench.py``).
 """
 

@@ -18,7 +18,11 @@ The session renders where its scene lies. With an editor, the scene is built
 on ``device`` (the card unless the caller names another); with an explicit
 (scene, camera) pair, on the scene's device. ``accum`` stays on that device;
 ``image()`` and ``image_u8()`` copy to the host. Every pass runs under
-``torch.inference_mode()``, whatever the scene's leaves require.
+``torch.inference_mode()``, whatever the scene's leaves require. On the
+card the passes go through the captured sample (``engine/compiled.py``),
+as the JAX session jits its pass: the first pass after a (re)start renders
+eagerly, the second captures, the later ones replay; the result is the
+eager render's bit for bit (``render_sample`` is the eager pass).
 """
 
 from __future__ import annotations

@@ -109,7 +109,7 @@ def intersect_dense_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
     return classic_in_order(geom, ro, rd, t_lower, alive, perm)
 
 
-intersect_dense_plain.launches = 0
+native.counted(intersect_dense_plain)
 
 
 def _tris_and_boxes(v0, e1, e2, chunk: int, n_chunks: int):
@@ -207,4 +207,4 @@ def intersect_dense(geom: Geometry, ro, rd, t_lower=None, alive=None,
     return hit, idx, t, u, v
 
 
-intersect_dense.launches = 0
+native.counted(intersect_dense)

@@ -108,7 +108,7 @@ def intersect_list_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
     return hit, idx, t, u, v
 
 
-intersect_list_plain.launches = 0
+native.counted(intersect_list_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,7 +401,7 @@ def intersect_list(geom: Geometry, ro, rd, t_lower=None, alive=None,
     return out
 
 
-intersect_list.launches = 0
+native.counted(intersect_list)
 
 
 def intersect_list_stats(geom: Geometry, ro, rd, t_lower=None, alive=None,

@@ -118,7 +118,7 @@ def gather_rows_t_plain(table, idx):
     return torch.where(ok[:, None], rows, 0.0).T.contiguous()
 
 
-gather_rows_t_plain.launches = 0
+native.counted(gather_rows_t_plain)
 
 
 def gather_rows_t_bwd_plain(idx, cot, n_rows: int):
@@ -131,7 +131,7 @@ def gather_rows_t_bwd_plain(idx, cot, n_rows: int):
     return out.index_add_(0, idx[ok].long(), cot.T[ok])
 
 
-gather_rows_t_bwd_plain.launches = 0
+native.counted(gather_rows_t_bwd_plain)
 
 
 _fwd_launch = None   # the library's pbr_packgather_fwd, after its first load
@@ -200,7 +200,7 @@ def gather_rows_t_bwd(idx, cot, n_rows: int):
     return out
 
 
-gather_rows_t_bwd.launches = 0
+native.counted(gather_rows_t_bwd)
 
 
 class _GatherRowsT(torch.autograd.Function):
@@ -227,4 +227,4 @@ def gather_rows_t(table, idx):
     return gather_rows_t_fwd(table, idx)
 
 
-gather_rows_t.launches = 0
+native.counted(gather_rows_t)

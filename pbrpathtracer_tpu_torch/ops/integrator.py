@@ -10,7 +10,18 @@ undone at the end; a reordered render equals the scanline one bit for bit
 per pixel.
 
 The loop stops once every lane is dead (``skip_dead_segments``); that test
-reads one flag back from the device per segment.
+reads one flag back from the device per segment. A sample is split where
+the compiled runner (``engine/compiled.py``) splits it, into a prologue
+(rays and the initial wavefront), one body per segment and an epilogue
+(the scatters): ``SamplePlan``, driven by ``drive``.
+
+Compiled entries: on a CUDA scene, where no autograd graph is recorded,
+``render`` and ``render_accumulate`` go through the captured samples of
+``engine/compiled.py`` (the JAX package runs them under ``jax.jit``): the
+first sample of a scene, camera and config runs eagerly, the second is
+captured in CUDA graphs, and every later one replays them, with the same
+result bit for bit. ``render_sample`` is always eager: a loop of it, summed
+and divided by the sample count as ``render`` does, is the eager render.
 
 Progressive accumulation matches the reference's buffer semantics: float
 accumulation of per-pass radiance, display = floor(clamp(accum / samples, 0,
@@ -136,38 +147,100 @@ def _compactor(scene, cfg):
     return base
 
 
-def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):
-    device = scene.device
-    camera = camera.to(device)
-    blocked = pixel_idx is None and cfg.resolved_pixel_order() == "block"
-    if blocked:
-        # keyed by the pixel value, so only lane positions change; undone
-        # by the scatter at the end
-        pixel_idx = torch.from_numpy(
-            block_pixel_order(cfg.width, cfg.height)).to(device)
-    elif pixel_idx is None:
-        pixel_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
-                                 device=device)
-    seed = cfg.seed if seed is None else seed
-    remat = cfg.resolved_remat() if torch.is_grad_enabled() else "off"
+@functools.lru_cache(maxsize=32)
+def block_pixel_order_on(width: int, height: int, device: torch.device):
+    """``block_pixel_order`` as an i32 tensor on ``device``, copied there
+    once per (width, height, device): a captured sample reads it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(block_pixel_order(width, height)).to(device)
 
-    ro, rd = generate_rays(camera, cfg.width, cfg.height, seed, sample_idx,
-                           pixel_idx)
-    state = WavefrontState.initial(ro, rd, pixel_idx)
-    compact = _compactor(scene, cfg)
-    slot = torch.arange(ro.shape[0], dtype=torch.int32, device=device)
-    for seg in range(cfg.resolved_max_segments()):
-        if cfg.skip_dead_segments and not bool(state.alive.any()):
-            break
-        if compact is not None:
-            state, slot = compact(state, slot)
-        state = _segment(scene, cfg, state, seg, sample_idx, seed, remat)
-    radiance = state.radiance
-    if compact is not None:
+
+class SamplePlan:
+    """One sample of ``render_sample``, split where the compiled runner
+    (``engine/compiled.py``) captures it:
+
+    * ``prologue()``: the camera rays and the initial wavefront;
+    * ``segment(k, state, slot)``: compaction (if any) and bounce segment k;
+    * ``epilogue(state, slot)``: the scatters that undo compaction and the
+      block pixel order; the radiance f32[N, 3].
+
+    The first two return (state, slot, flag): ``flag`` is ``alive.any()``
+    of the new state, on the device, which the next segment is tested on,
+    or None where no test follows (the last segment, or
+    ``skip_dead_segments`` off). ``drive`` runs the three in the eager
+    loop's order. ``seed`` and ``sample_idx`` are ints or 0-d tensors.
+    """
+
+    def __init__(self, scene, camera, cfg, sample_idx, seed=None,
+                 pixel_idx=None, remat="off"):
+        device = scene.device
+        self.scene, self.cfg, self.remat = scene, cfg, remat
+        self.camera = camera.to(device)
+        self.sample_idx = sample_idx
+        self.seed = cfg.seed if seed is None else seed
+        self.n_segments = cfg.resolved_max_segments()
+        self.compact = _compactor(scene, cfg)
+        # the block order is keyed by the pixel value, so only lane
+        # positions change; the epilogue's scatter undoes it
+        self.order = None
+        if pixel_idx is None and cfg.resolved_pixel_order() == "block":
+            pixel_idx = self.order = block_pixel_order_on(
+                cfg.width, cfg.height, device)
+        elif pixel_idx is None:
+            pixel_idx = torch.arange(cfg.width * cfg.height,
+                                     dtype=torch.int32, device=device)
+        self.pixel_idx = pixel_idx
+
+    def _flag(self, state, next_seg):
+        if self.cfg.skip_dead_segments and next_seg < self.n_segments:
+            return state.alive.any()
+        return None
+
+    def prologue(self):
+        ro, rd = generate_rays(self.camera, self.cfg.width, self.cfg.height,
+                               self.seed, self.sample_idx, self.pixel_idx)
+        state = WavefrontState.initial(ro, rd, self.pixel_idx)
+        slot = torch.arange(ro.shape[0], dtype=torch.int32, device=ro.device)
+        return state, slot, self._flag(state, 0)
+
+    def segment(self, seg, state, slot):
+        if self.compact is not None:
+            state, slot = self.compact(state, slot)
+        state = _segment(self.scene, self.cfg, state, seg, self.sample_idx,
+                         self.seed, self.remat)
+        return state, slot, self._flag(state, seg + 1)
+
+    def epilogue(self, state, slot):
+        return unscatter(state.radiance,
+                         None if self.compact is None else slot, self.order)
+
+
+def unscatter(radiance, slot, order):
+    """The epilogue's scatters: undo the compaction (``slot``, or None) and
+    then the block pixel order (``order``, or None)."""
+    if slot is not None:
         radiance = scatter_to_slots(radiance, slot)
-    if blocked:
-        radiance = scatter_to_slots(radiance, pixel_idx)
+    if order is not None:
+        radiance = scatter_to_slots(radiance, order)
     return radiance
+
+
+def drive(plan):
+    """Run a ``SamplePlan`` (or anything with its three methods, such as a
+    captured sample) as the eager loop does: a segment runs only while its
+    flag, read back from the device, says a lane is alive."""
+    state, slot, flag = plan.prologue()
+    for seg in range(plan.n_segments):
+        if flag is not None and not bool(flag):
+            break
+        state, slot, flag = plan.segment(seg, state, slot)
+    return plan.epilogue(state, slot)
+
+
+def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):
+    remat = cfg.resolved_remat() if torch.is_grad_enabled() else "off"
+    return drive(SamplePlan(scene, camera, cfg, sample_idx, seed, pixel_idx,
+                            remat))
 
 
 def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,
@@ -176,7 +249,9 @@ def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,
 
     ``sample_idx`` is the absolute sample counter, so progressive passes and
     resumed renders draw fresh, seed-exact samples. ``seed`` overrides
-    ``cfg.seed``.
+    ``cfg.seed``. Both may be Python ints or 0-d integer tensors (a device
+    value, as the JAX package traces them). Always eager: the compiled
+    sample is ``engine.compiled.SAMPLES.sample``.
     """
     with _grad_mode(scene, camera):
         return _render_sample(scene, camera, cfg, sample_idx, pixel_idx,
@@ -186,7 +261,13 @@ def render_sample(scene: Scene, camera: Camera, cfg, sample_idx,
 def render_accumulate(scene: Scene, camera: Camera, cfg, accum,
                       sample_start, num_samples: int, seed=None):
     """Add ``num_samples`` progressive passes onto ``accum`` (f32[N,3]) and
-    return it; the caller tracks the sample counter."""
+    return it; the caller tracks the sample counter. On a CUDA scene with
+    no graph to record, the passes go through the captured samples
+    (``engine/compiled.py``); the sum is the same bit for bit."""
+    if scene.device.type == "cuda" and not _records_graph(scene, camera):
+        from ..engine.compiled import SAMPLES
+        return SAMPLES.accumulate(scene, camera, cfg, accum, sample_start,
+                                  num_samples, seed)
     with _grad_mode(scene, camera):
         for k in range(num_samples):
             accum = accum + render_sample(scene, camera, cfg,
@@ -196,7 +277,9 @@ def render_accumulate(scene: Scene, camera: Camera, cfg, accum,
 
 def render(scene: Scene, camera: Camera, cfg, seed=None):
     """Render cfg.spp samples; returns the mean radiance f32[H, W, 3] on the
-    scene's device, differentiable w.r.t. every leaf that requires grad."""
+    scene's device, differentiable w.r.t. every leaf that requires grad.
+    A forward-only render on the card goes through the captured samples
+    (``render_accumulate``)."""
     with _grad_mode(scene, camera):
         accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
                             device=scene.device)

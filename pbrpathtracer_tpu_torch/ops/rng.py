@@ -59,16 +59,23 @@ _MASK = 0xFFFFFFFF
 
 def pcg4d(a, b, c, d):
     """4-in/4-out pcg4d hash (Jarzynski & Olano, JCGT 2020) on 32-bit words
-    carried in int64. Inputs are broadcastable int tensors or Python ints;
-    outputs are int64 tensors with values in [0, 2**32), on the device of
-    the tensor inputs."""
+    carried in int64. Inputs are broadcastable int tensors (a 0-d one may be
+    a device value, as a captured render's seed and sample index are) or
+    Python ints; outputs are int64 tensors with values in [0, 2**32), on
+    the device of the tensor inputs.
+
+    A Python int becomes a 0-d CPU tensor, which torch hands to a device
+    kernel by value: no copy to the card, so the hash can be captured in a
+    CUDA graph (with that word fixed in it)."""
     device = next((v.device for v in (a, b, c, d)
-                   if isinstance(v, torch.Tensor)), None)
+                   if isinstance(v, torch.Tensor) and v.dim() > 0), None)
 
     def word(v):
         if not isinstance(v, torch.Tensor):
-            v = int(v) & _MASK
-        return torch.as_tensor(v, device=device).to(torch.int64) & _MASK
+            return torch.tensor(int(v) & _MASK, dtype=torch.int64)
+        if device is not None and (v.dim() > 0 or v.device.type != "cpu"):
+            v = v.to(device)   # a 0-d CPU word stays a by-value operand
+        return v.to(torch.int64) & _MASK
 
     m = 1664525
     k = 1013904223

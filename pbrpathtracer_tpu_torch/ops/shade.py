@@ -84,6 +84,21 @@ class WavefrontState:
         )
 
 
+_E0_ROWS = {}   # device -> f32[2, 3]: cone_direction's two choices of e0
+
+
+def _e0_rows(device):
+    """The rows (1,0,0) and (1,1,1) on ``device``, made at its first render
+    (outside any capture: a graph may read them, never copy them there)."""
+    rows = _E0_ROWS.get(device)
+    if rows is None:
+        with torch.inference_mode(False):
+            rows = _E0_ROWS[device] = torch.tensor(
+                [[1.0, 0.0, 0.0], [1.0, 1.0, 1.0]], dtype=torch.float32,
+                device=device)
+    return rows
+
+
 def cone_direction(basis, last_axis, nx, thresh, w, theta):
     """The reference's hemisphere/cone sampler.
 
@@ -93,8 +108,8 @@ def cone_direction(basis, last_axis, nx, thresh, w, theta):
     test always reads n.x, even when the basis is built around r.
     """
     cond = (torch.abs(nx) < thresh)[:, None]
-    e0 = torch.where(cond, basis.new_tensor([1.0, 0.0, 0.0]),
-                     basis.new_tensor([1.0, 1.0, 1.0]))
+    rows = _e0_rows(basis.device)
+    e0 = torch.where(cond, rows[0], rows[1])
     u = safe_normalize(cross(e0, basis))
     v = safe_normalize(cross(u, basis))
     ang = TWO_PI * theta

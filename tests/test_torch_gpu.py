@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, and its
+compiled forward (``engine/compiled.py``) against the eager render, on the
+card.
 
 Every test here needs a CUDA card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -14,18 +16,20 @@ double in a fixed order: it is held to an f64 reference at rtol 1e-6, atol
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from _torch_common import watchdog  # noqa: F401  (autouse)
-from chip_smoke import flat_plane_scene
+from chip_smoke import eager_render, flat_plane_scene
 from pbrpathtracer_tpu_torch import (Camera, RenderConfig, builders,
                                      grad_render, render)
 from pbrpathtracer_tpu_torch.kernels import intersect as KI
 from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
 from pbrpathtracer_tpu_torch.kernels import packgather as KP
+from pbrpathtracer_tpu_torch.ops.integrator import render_sample
 from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
                                                       mesh_scene_camera)
 from pbrpathtracer_tpu_torch.scene.scene import finalize_scene, pack_geometry
@@ -197,8 +201,9 @@ def test_packgather_kernel_on_a_bounce_segment(dev):
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
     scene = mesh_scene(50_000)
     cfg = RenderConfig(width=128, height=128, max_depth=3, spp=1)
-    _, seen = capture_fetches(lambda: render(scene, mesh_scene_camera(),
-                                             cfg))
+    # eager: a replay of the captured sample calls no gather_fields
+    _, seen = capture_fetches(lambda: eager_render(
+        scene, mesh_scene_camera().to(dev), cfg))
     ids = [x for _, w, x in seen if w == sp.TRI_PACK_WIDTH][2]
     table = sp.build_tri_pack(scene)
     assert KP.fwd_path(*table.shape) == "in place"
@@ -734,3 +739,162 @@ def test_sharded_render_and_step_on_the_card_without_a_group(dev):
                 torch.zeros((cfg.num_pixels, 3), device=dev), 0)
     assert torch.isfinite(loss)
     assert all(f.launches > b for f, b in zip(counters, before))
+
+
+# ---- the compiled forward: captured samples against the eager render -------
+
+def _compiled_case(name, dev):
+    kw = dict(width=64, height=64, max_depth=3, spp=2, seed=3)
+    if name == "cornell":
+        return builders.cornell_box(), Camera.make(**POSE).to(dev), \
+            RenderConfig(**kw)
+    if name == "translucent":
+        return (builders.translucent_scene(),
+                Camera.make(**POSE, focal_dist=2.2, aperture=0.04).to(dev),
+                RenderConfig(**{**kw, "max_depth": 5}))
+    scene = mesh_scene(3000)    # over 2048 triangles: K4
+    cfg = RenderConfig(**kw)
+    if name == "mesh3k sort block":
+        cfg = cfg.replace(compact_wavefront="sort", pixel_order="block")
+    return scene, mesh_scene_camera().to(dev), cfg
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh3k", "translucent",
+                                  "mesh3k sort block"])
+def test_compiled_render_equals_eager_bit_for_bit(dev, name):
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    scene, cam, cfg = _compiled_case(name, dev)
+    eager = eager_render(scene, cam, cfg)
+    first = render(scene, cam, cfg)        # eager, then warm-up and capture
+    captures = SAMPLES.captures
+    again = render(scene, cam, cfg)        # replays only
+    other = cfg.replace(seed=cfg.seed + 1)
+    moved = render(scene, cam, other)      # a new seed: the same graphs
+    assert SAMPLES.captures == captures
+    assert SAMPLES.entry(scene, cam, cfg) is SAMPLES.entry(scene, cam, other)
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+    assert torch.equal(moved, eager_render(scene, cam, other))
+    assert not torch.equal(moved, eager)
+
+
+def test_a_one_shot_render_captures_nothing(dev):
+    """The first sample of a key renders eagerly and captures nothing; the
+    second captures; a dropped scene takes its graphs with it."""
+    import gc
+    import weakref
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    one = cfg.replace(spp=1)
+    captures = SAMPLES.captures
+    img = render(scene, cam, one)
+    assert SAMPLES.captures == captures
+    assert SAMPLES.entry(scene, cam, one) is None
+    assert torch.equal(img, eager_render(scene, cam, one))
+    assert torch.equal(render(scene, cam, one), img)   # captured here
+    assert SAMPLES.captures == captures + 1
+    entry = weakref.ref(SAMPLES.entry(scene, cam, one))
+    held = len(SAMPLES)
+    del scene
+    gc.collect()
+    assert entry() is None and len(SAMPLES) == held - 1
+
+
+def test_compiled_results_are_fresh_tensors(dev):
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    a = render(scene, cam, cfg)
+    kept = a.clone()
+    b = render(scene, cam, cfg.replace(seed=cfg.seed + 7))
+    torch.cuda.synchronize()
+    assert torch.equal(a, kept) and not torch.equal(a, b)
+    r0 = SAMPLES.sample(scene, cam, cfg, 0)
+    r0_kept = r0.clone()
+    r1 = SAMPLES.sample(scene, cam, cfg, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(r0, r0_kept) and not torch.equal(r0, r1)
+    entry = SAMPLES.entry(scene, cam, cfg)
+    buffers = {state.radiance.data_ptr() for state, _, _ in entry.outputs}
+    assert r0.data_ptr() not in buffers and r1.data_ptr() not in buffers
+
+
+def test_compiled_counters_advance_by_the_captured_launches(dev):
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.kernels import native
+    for name in ("cornell", "mesh3k"):
+        scene, cam, cfg = _compiled_case(name, dev)
+        one = cfg.replace(spp=1)
+        render(scene, cam, one)                     # eager
+        render(scene, cam, one)                     # captured here
+        entry = SAMPLES.entry(scene, cam, one)
+        assert len(entry.graphs) == entry.n_segments + 1
+        before = {f: f.launches for f in native.COUNTED}
+        eager_render(scene, cam, one)
+        eager = {f: f.launches - n for f, n in before.items()}
+        before = {f: f.launches for f in native.COUNTED}
+        render(scene, cam, one)
+        torch.cuda.synchronize()
+        replay = {f: f.launches - n for f, n in before.items()}
+        assert replay == eager
+        route = KL.intersect_list if name == "mesh3k" else KI.intersect_dense
+        assert replay[route] > 0 and replay[KP.gather_rows_t] > 0
+        assert all(n == 0 for f, n in replay.items()
+                   if f.__name__.endswith("_plain"))
+        # the counts are those of the graphs replayed: a prefix of them
+        prefixes = [{f: sum(d.get(f, 0) for d in entry.launches[:k])
+                     for f in native.COUNTED}
+                    for k in range(1, len(entry.graphs) + 1)]
+        assert replay in prefixes
+
+
+def test_compiled_session_with_concurrent_reads(dev):
+    """A run_async session captures on its thread while this one reads the
+    image; it ends where step() ends, bit for bit."""
+    from pbrpathtracer_tpu_torch import RenderSession, RenderState
+    scene = builders.cornell_box()         # a fresh key: captured below
+    cam = Camera.make(**POSE).to(dev)
+    cfg = RenderConfig(width=64, height=64, max_depth=3, seed=8)
+    a = RenderSession(scene=scene, camera=cam, cfg=cfg)
+    a.target_samples = 6
+    a.run_async()
+    reads = 0
+    deadline = time.time() + 120
+    while a._thread is not None and a._thread.is_alive() \
+            and time.time() < deadline:
+        img = a.image()
+        assert img.shape == (64, 64, 3) and np.isfinite(img).all()
+        reads += 1
+    assert a.wait(timeout=1) and a.state == RenderState.PAUSED
+    assert a.samples == 6 and reads > 0
+    accum = torch.zeros_like(a.accum)
+    with torch.inference_mode():
+        for k in range(6):
+            accum = accum + render_sample(scene, cam, cfg, k)
+    assert torch.equal(a.accum, accum)
+
+
+def test_a_failed_capture_raises(dev, monkeypatch):
+    """A host read-back inside a segment: the eager samples take it, the
+    capture (at the second sample) cannot; the render raises and caches
+    nothing, and the next render without it captures."""
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.ops import integrator as pint
+    from pbrpathtracer_tpu_torch.utils.roofline import record_launches
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    shade = pint.shade_segment
+
+    def reads_back(*args, **kwargs):
+        out = shade(*args, **kwargs)
+        float(out.radiance.sum())
+        return out
+    monkeypatch.setattr(pint, "shade_segment", reads_back)
+    captures = SAMPLES.captures
+    with pytest.raises(RuntimeError):
+        render(scene, cam, cfg)
+    assert SAMPLES.captures == captures
+    assert SAMPLES.entry(scene, cam, cfg) is None
+    monkeypatch.setattr(pint, "shade_segment", shade)
+    assert torch.equal(render(scene, cam, cfg),
+                       eager_render(scene, cam, cfg))
+    assert SAMPLES.captures == captures + 1
+    with record_launches(), pytest.raises(RuntimeError):
+        render(scene, cam, cfg)             # a replay records no shapes
