@@ -4,7 +4,7 @@ sharded and measurement paths once on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 [--root TREE]   # phase 29 alone, on TREE's port
-    python3 chip_smoke.py --compiled           # phase 32 alone
+    python3 chip_smoke.py --compiled           # phases 32 and 33 alone
     python3 chip_smoke.py --latency [--root TREE]   # a new key's wait
 
 (``--root`` takes a tree of the port that has ``utils/roofline.py``, where
@@ -44,8 +44,9 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                N = 262,139. Two calls must be bit-identical. Its plain
                version (f32 ``index_add_``, atomics on the card) is reported
                beside it.
-8. flagship fwd+bwd -- ``grad_render`` of 512x512 Cornell, depth 4, 1 spp,
-               materials, zero target: finite loss and gradients; K1, K2 and
+8. flagship fwd+bwd -- the eager fwd+bwd (``eager_grad_render``, what
+               ``grad_render`` runs at a key's first call) of 512x512
+               Cornell, depth 4, 1 spp, materials, zero target: finite loss and gradients; K1, K2 and
                K3 launched on that run and no plain version. Then CUDA-event
                times of the forward render and of fwd+bwd with
                ``remat_segments`` "hits", "off" and "all", the peak device
@@ -58,7 +59,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                below 0.15 of its start. Then, under
                ``torch.use_deterministic_algorithms(True)``, a 3+3-step resume
                must equal 6 uninterrupted steps bit for bit.
-11. texture grads -- textured Cornell, ``grad_render(textures=True)`` twice
+11. texture grads -- textured Cornell, the eager fwd+bwd of
+               ``grad_render(textures=True)`` twice
                with deterministic algorithms off (reported) and on (must be
                bit-identical).
 12. big scenes -- ``mesh_scene`` at 50k, 200k and 1M triangles built on the
@@ -155,8 +157,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                quick).
                Milliseconds per call printed.
 22. GGX     -- ``cornell_spheres_scene``, 512x512, depth 4, ``brdf="ggx"``:
-               finite and different from ``"reference"``; ``grad_render``
-               finite with a non-zero roughness gradient; AD against central
+               finite and different from ``"reference"``; the eager
+               fwd+bwd finite with a non-zero roughness gradient; AD against central
                FD of the rough sphere's roughness at 64x64 and of the glossy
                floor of a uniformly emissive box at 16x16, both at
                tests/test_ggx.py's render tolerance (5% + 1e-5).
@@ -220,7 +222,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                mode is defined: they are counted and must be exactly the
                queries that K1 lost; no other run of this script may count
                one. Flagship fwd+bwd milliseconds and peak memory of the
-               three modes.
+               three modes. (Every fwd+bwd here is the eager program.)
 29. K2 shapes -- K2 at every shape its paths give it, with the ids the
                renders feed it (caught from ``gather_fields``): the Cornell
                and spheres tri packs on 512^2 primary hit ids, the 50k and 1M
@@ -241,7 +243,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                ``git archive``), so that two trees are read by the same code.
 30. bench   -- ``bench.measure_flagship()`` at its full widths (the 512^2
                depth-4 Cornell forward, replayed from the captured sample,
-               and the eager fwd+bwd, the 512^2 depth-8
+               and the fwd+bwd, replayed from the captured fwd+bwd, the
+               512^2 depth-8
                translucent forward behind a lens, the 50k and 1M scenes built
                in phase 12 at 512^2 depth 3), with the counters at 0: its
                JSON line printed; rays/s > 0; no error key; both
@@ -281,11 +284,40 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                kernels in the trace against the counters, and the device
                time of the flagship and 50k renders, eager and compiled.
                One ``compiled:`` JSON line holds the readings.
+33. compiled gradient -- the fwd+bwd that the JAX package compiles
+               (``_jit_grad``, the fit step, the bench's ``fb_jit``),
+               replayed from one CUDA graph (``engine.compiled.GRADS``)
+               against the eager fwd+bwd (``eager_grad_render``), each from
+               an empty cache: the flagship per ``remat_segments`` ("off",
+               "hits", "all") and behind a lens per ``hit_vjp`` ("winner",
+               "autodiff"; materials and lens), the GGX spheres, the 50k
+               material gradient at 512^2 depth 3 (K4, K2, K3). Each: a
+               first call captures nothing, the second captures; both calls,
+               a replay and a replay at a new seed equal the eager fwd+bwd
+               in the loss and every gradient (max |d| = 0, or within two
+               eager calls' difference, which is printed); launches by
+               replay equal eager's (K1 or K4, K2, K3; no plain version);
+               no recapture at a new seed; eager and compiled in turns,
+               medians by CUDA events and host wall, capture seconds, the
+               MB the graph holds, device time and kernels by
+               ``torch.profiler`` with the trace's K1, K2, K3 and K4
+               kernels equal to the counters. The deep translucent 512^2
+               depth 8 behind a lens, with ``with_auto_segments``' cap and
+               remat "hits": captured at the seed of fewest live segments,
+               replayed at the one of most (the tail flag set: a second
+               capture, the warm-up's eager result), both seeds replayed
+               after, bit-equal to eager. The fit at 64^2 depth 2 2 spp:
+               losses and final parameters of the captured fit equal the
+               eager fit's bit for bit, a 3+3 resume equals 6 under
+               deterministic algorithms, ms a step, the update's kernels.
+               One ``compiled grad:`` JSON line holds the readings.
 Every render above runs as a user calls it: on the card a forward render,
 session pass and bench forward step go through the captured sample (its
 first sample of a key eager, the second captured, the later ones replayed;
-phase 32), except where a phase reads what the eager program does (its
-launch shapes, its fetched ids), which renders by ``eager_render``.
+phase 32), and ``grad_render``, a fit step and the bench's fwd+bwd step
+through the captured fwd+bwd (phase 33), except where a phase reads what
+the eager program does (its launch shapes, its fetched ids, its
+determinism), which runs ``eager_render`` or ``eager_grad_render``.
 ``--latency`` times what meets a new key (``latency_main``), on this
 checkout's port or another tree's, so that a parent and its change are
 read by the same code.
@@ -648,7 +680,7 @@ def texture_grad_phase(camera, dev):
     bit-identical across two calls with deterministic algorithms on."""
     import numpy as np
     import torch
-    from pbrpathtracer_tpu_torch import RenderConfig, builders, grad_render
+    from pbrpathtracer_tpu_torch import RenderConfig, builders
     from pbrpathtracer_tpu_torch.scene.scene import (finalize_scene,
                                                      pack_textures)
     from pbrpathtracer_tpu_torch.utils.constants import TEX_DIFFUSE
@@ -663,10 +695,10 @@ def texture_grad_phase(camera, dev):
     zero = torch.zeros((256, 256, 3), device=dev)
 
     def twice():
-        a = grad_render(scene, camera, cfg, zero, materials=False,
-                        textures=True)[1]["tex.data"]
-        b = grad_render(scene, camera, cfg, zero, materials=False,
-                        textures=True)[1]["tex.data"]
+        a = eager_grad_render(scene, camera, cfg, zero, materials=False,
+                              textures=True)[1]["tex.data"]
+        b = eager_grad_render(scene, camera, cfg, zero, materials=False,
+                              textures=True)[1]["tex.data"]
         return torch.equal(a, b), float((a - b).abs().max())
 
     plain_same, plain_d = twice()
@@ -1569,7 +1601,7 @@ def ggx_phase(spheres, camera, dev, smi_line):
     differs = float((img - ref).abs().max())
     zero = torch.zeros((512, 512, 3), device=dev)
     (loss, grads), _ = counted_run(
-        "GGX fwd+bwd", lambda: grad_render(spheres, camera, cfg, zero),
+        "GGX fwd+bwd", lambda: eager_grad_render(spheres, camera, cfg, zero),
         ("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"))
     g_finite = bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads.values())
@@ -2154,7 +2186,7 @@ def hit_vjp_phase(cornell, camera, big, million, primary_ids, rs, dev,
     flagship "winner" fwd+bwd)."""
     import torch
     from pbrpathtracer_tpu_torch import (RenderConfig, builders, get_params,
-                                         grad_render, l2_image_loss, render)
+                                         l2_image_loss, render)
     from pbrpathtracer_tpu_torch.diff.loss import finite_difference_grad
     from pbrpathtracer_tpu_torch.kernels.intersect import intersect_dense
     from pbrpathtracer_tpu_torch.kernels.intersect_list import intersect_list
@@ -2212,7 +2244,7 @@ def hit_vjp_phase(cornell, camera, big, million, primary_ids, rs, dev,
                         "winner": ("intersect_dense", "gather_rows_t"),
                         "autodiff": ("intersect_dense",)}[mode]
             out[mode] = counted_run(
-                f"{what}, hit_vjp={mode}", lambda: grad_render(
+                f"{what}, hit_vjp={mode}", lambda: eager_grad_render(
                     scene, lcam, cfg.replace(hit_vjp=mode), target,
                     materials=True, camera_lens=True), launched,
                 ("intersect_list",), autodiff=mode == "autodiff")
@@ -2268,8 +2300,8 @@ def hit_vjp_phase(cornell, camera, big, million, primary_ids, rs, dev,
     zero = torch.zeros((fcfg.height, fcfg.width, 3), device=dev)
 
     def fwd_bwd(mode):
-        return grad_render(cornell, lcam, fcfg.replace(hit_vjp=mode), zero,
-                           materials=True, camera_lens=True)
+        return eager_grad_render(cornell, lcam, fcfg.replace(hit_vjp=mode),
+                                 zero, materials=True, camera_lens=True)
     _, w_counts = counted_run(
         "flagship fwd+bwd, hit_vjp=winner", lambda: fwd_bwd("winner"),
         ("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"),
@@ -2765,7 +2797,7 @@ LENS = dict(focal_dist=2.2, aperture=0.04)
 # the device kernel of each counted wrapper, by the start of its short name
 KERNEL_OF = {"intersect_dense": "intersect_dense_kernel",
              "intersect_list": "bvh_intersect_kernel",
-             "gather_rows_t": "fwd_"}
+             "gather_rows_t": "fwd_", "gather_rows_t_bwd": "bwd_zero_kernel"}
 
 
 def eager_render(scene, camera, cfg, seed=None):
@@ -3073,7 +3105,8 @@ def compiled_phase(cornell, spheres, big, million, camera, mcam, loaded,
 
 
 def compiled_main():
-    """Phase 32 alone, with the scenes it needs (``--compiled``)."""
+    """Phases 32 and 33 alone, with the scenes they need
+    (``--compiled``)."""
     import torch
     from pbrpathtracer_tpu_torch import Camera, builders
     from pbrpathtracer_tpu_torch.kernels import native
@@ -3091,11 +3124,395 @@ def compiled_main():
     big = mesh_scene(50_000)
     with tempfile.TemporaryDirectory() as tmp:
         ed, _, loaded = scene_files_phase(tmp, big, cornell)
-    compiled_phase(cornell, builders.cornell_spheres_scene(), big,
-                   million_tri_scene(), Camera.make(**CAM_POSE).to(dev),
-                   mesh_scene_camera().to(dev),
+    spheres, camera = (builders.cornell_spheres_scene(),
+                       Camera.make(**CAM_POSE).to(dev))
+    mcam = mesh_scene_camera().to(dev)
+    compiled_phase(cornell, spheres, big, million_tri_scene(), camera, mcam,
                    (loaded, ed.tracer_camera(device=dev)), dev, smi_line)
+    compiled_grad_phase(cornell, spheres, big, camera, mcam, dev, smi_line)
     print(smi_line, flush=True)
+
+
+# Phase 33: the compiled gradient. Each workload's fwd+bwd timed in turns,
+# eager and compiled, after the warm-up (the medians are read); fewer on
+# the 50k scene and the deep translucent one; fit steps per fit
+COMPILED_GRAD_REPS, COMPILED_GRAD_BIG_REPS, FIT_STEPS = 10, 3, 6
+# the deep translucent gradient: 512^2 depth 8 with the segment cap that
+# ``RenderConfig.with_auto_segments`` sizes (its live segments differ by
+# seed, so a replay may find its captured ones too few), recomputing its
+# shading in the backward; seeds searched for two different live counts
+DEEP_GRAD_SEEDS = 8
+
+
+def eager_grad_render(scene, camera, cfg, target, seed=None, **select):
+    """What ``grad_render`` returns, by the eager program
+    (``diff.loss.eager_loss_and_grad``). On the card ``grad_render``
+    replays a captured fwd+bwd; this is the eager one beside it."""
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.diff.loss import eager_loss_and_grad
+    return eager_loss_and_grad(get_params(scene, camera, **select), scene,
+                               camera, cfg, target, seed)
+
+
+def grad_errs(got, want):
+    """{"loss": |d|, parameter: max |d|} of two (loss, grads)."""
+    (la, ga), (lb, gb) = got, want
+    return {"loss": max_abs(la, lb),
+            **{k: max_abs(ga[k], gb[k]) for k in ga}}
+
+
+def held_after(fn):
+    """(fn's result, MB that the call left reserved: what a capture's pool
+    keeps), the allocator's unused cache released before and after."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, (torch.cuda.memory_reserved() - base) / 2 ** 20
+
+
+def compiled_grad_reading(name, scene, camera, cfg, select, reps, launched,
+                          never, smi_line):
+    """Phase 33 on one fwd+bwd workload, from an empty cache: the eager
+    fwd+bwd twice, then ``grad_render`` twice (its first call eager, its
+    second the warm-up and capture); then replays, bit-equal to the eager
+    fwd+bwd in the loss and every gradient (or, where two eager calls
+    differ, within their difference) with its launches, a new seed without
+    a recapture, times in turns, what the graph holds, the trace's kernels
+    against the counters. Returns (the replay's counts, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch import get_params, grad_render
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    GRADS.clear()
+    captures = GRADS.captures   # the process's count so far
+    autodiff = cfg.hit_vjp == "autodiff"
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+    params = get_params(scene, camera, **select)
+
+    def eager(seed=None):
+        return eager_grad_render(scene, camera, cfg, target, seed, **select)
+
+    def compiled(seed=None):
+        return grad_render(scene, camera, cfg, target, seed=seed, **select)
+    ref, ecounts = counted_run(f"{name}, eager", eager, launched, never,
+                               autodiff=autodiff)
+    spread = grad_errs(eager(), ref)   # two eager calls
+    first, first_s = wall_s(compiled)
+    require(GRADS.captures == captures, f"{name}: a one-shot call captured")
+    second, held_mb = held_after(lambda: wall_s(compiled))
+    second, second_s = second
+    entry = GRADS.entry(params, scene, camera, cfg, target)
+    require(entry is not None and GRADS.captures == captures + 1,
+            f"{name}: {GRADS.captures - captures} captures in two calls")
+    # a replay runs no query in plain torch: nothing for autodiff to count
+    replay, ccounts = counted_run(f"{name}, compiled replay", compiled,
+                                  launched, never)
+    moved, moved_eager = compiled(cfg.seed + 1), eager(cfg.seed + 1)
+    errs = {}
+    for got, want in ((first, ref), (second, ref), (replay, ref),
+                      (moved, moved_eager)):
+        for k, v in grad_errs(got, want).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    over = {k: (v, spread[k]) for k, v in errs.items() if v > spread[k]}
+    require(not over, f"{name}: compiled differs from eager by more than "
+            f"two eager calls do: {over}")
+    eager_spread = {k: v for k, v in spread.items() if v}
+    del ecounts["autodiff_queries"], ccounts["autodiff_queries"]
+    require(ccounts == ecounts, f"{name}: compiled launches {ccounts} != "
+            f"eager {ecounts}")
+    recaptured = GRADS.captures - captures - 1
+    require(recaptured == 0, f"{name}: a new seed captured again")
+    require(float((moved[0] - ref[0]).abs()) > 0,
+            f"{name}: the seed changed nothing")
+    del first, second, replay, moved, moved_eager
+    times = timed_turns({"eager": eager, "compiled": compiled}, reps)
+    mb_eager = peak_above(eager)
+    mb_replay = peak_above(compiled)
+    reading = {
+        "workload": name, "captures": 1, "recaptures_new_seed": recaptured,
+        "segments_captured": entry.counts,
+        "capture_s": round(entry.capture_s, 4),
+        "first_call_s": round(first_s, 4),
+        "second_call_s": round(second_s, 4),
+        "max_abs_err": errs, "eager_vs_eager": eager_spread,
+        "launches_equal": True, "launches": ccounts,
+        "eager_ms": [round(x, 3) for x in times["eager"]],
+        "compiled_ms": [round(x, 3) for x in times["compiled"]],
+        "peak_mb_eager": round(mb_eager, 1),
+        "held_mb_compiled": round(held_mb, 1),
+        "peak_mb_replay": round(mb_replay, 1), "reps": reps}
+    for key, fn in (("compiled", compiled), ("eager", eager)):
+        k = checked_kernels(f"{name}, {key}", fn)
+        reading[f"device_kernels_{key}"] = sum(c for c, _ in k.values())
+        reading[f"device_ms_{key}"] = round(
+            sum(us for _, us in k.values()) / 1e3, 4)
+    print(f"compiled grad {name} ({smi_line}): captured in "
+          f"{entry.capture_s:.3f} s, segments {entry.counts} (first call "
+          f"{first_s:.3f} s, second {second_s:.3f} s); max |d| vs eager "
+          f"{errs}" + (f" (two eager calls differ by {eager_spread})"
+                       if eager_spread else "")
+          + f"; launches equal {ccounts}; new seed recaptured {recaptured}; "
+          f"eager {times['eager'][0]:.3f} ms by CUDA events, "
+          f"{times['eager'][1]:.3f} ms host wall | compiled "
+          f"{times['compiled'][0]:.3f} / {times['compiled'][1]:.3f} ms "
+          f"(medians of {reps}); device eager {reading['device_ms_eager']} "
+          f"ms in {reading['device_kernels_eager']} kernels | compiled "
+          f"{reading['device_ms_compiled']} ms in "
+          f"{reading['device_kernels_compiled']} kernels (torch.profiler; "
+          f"K1, K2, K3 and K4 in the trace equal the counters); MB peak "
+          f"eager {mb_eager:.1f}, held by the graph {held_mb:.1f}, a "
+          f"replay's peak above it {mb_replay:.1f}", flush=True)
+    return ccounts, reading
+
+
+def regrowth_reading(scene, camera, cfg, smi_line):
+    """Phase 33's deep translucent gradient: a key captured at the seed
+    with the fewest live segments, replayed at one with more (its tail
+    flag set: the key captures again, the call returns the warm-up's eager
+    result, one capture counted), then replayed at both seeds: each equal
+    to the eager fwd+bwd bit for bit, the shorter one now running dead
+    segments. Returns (a replay's counts, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch import get_params, grad_render
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    from pbrpathtracer_tpu_torch.utils.observability import (
+        wavefront_occupancy)
+    name = (f"deep translucent {cfg.width}x{cfg.height} depth "
+            f"{cfg.max_depth}, {cfg.resolved_max_segments()}-segment cap, "
+            f"remat hits")
+    live = {s: int((wavefront_occupancy(scene, camera, cfg.replace(
+        seed=s)) > 0).sum()) for s in range(DEEP_GRAD_SEEDS)}
+    lo = min(live, key=live.get)
+    hi = max(live, key=live.get)
+    require(live[hi] > live[lo],
+            f"{name}: no two seeds with different live segments: {live}")
+    GRADS.clear()
+    captures = GRADS.captures
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+
+    def eager(seed):
+        return eager_grad_render(scene, camera, cfg, target, seed)
+
+    def compiled(seed):
+        return grad_render(scene, camera, cfg, target, seed=seed)
+    launched = ("intersect_dense", "gather_rows_t", "gather_rows_t_bwd")
+    ref = {s: counted_run(f"{name}, eager, seed {s}", lambda: eager(s),
+                          launched, ("intersect_list",)) for s in (lo, hi)}
+    compiled(lo)                                  # eager, the key noted
+    (_, held_mb) = held_after(lambda: compiled(lo))   # captured at lo
+    entry = GRADS.entry(get_params(scene, camera), scene, camera, cfg,
+                        target)
+    short = list(entry.counts)
+    require(GRADS.captures == captures + 1 and short == [live[lo]],
+            f"{name}: captured {short} at seed {lo}, live {live[lo]}")
+    _, grown_s = wall_s(lambda: compiled(hi))     # too few: captured again
+    grown = compiled(hi)                          # a replay
+    require(GRADS.captures == captures + 2 and entry.counts == [live[hi]],
+            f"{name}: no regrowth to {live[hi]} segments: "
+            f"{GRADS.captures - captures} captures, {entry.counts}")
+    again, ccounts = counted_run(f"{name}, replay at seed {lo}",
+                                 lambda: compiled(lo), launched,
+                                 ("intersect_list",))
+    require(GRADS.captures == captures + 2, f"{name}: captured a third time")
+    errs = {s: grad_errs(x, ref[s][0]) for s, x in ((hi, grown), (lo, again))}
+    worst = max(max(e.values()) for e in errs.values())
+    require(worst == 0, f"{name}: compiled differs from eager: {errs}")
+    times = timed_turns({"eager": lambda: eager(lo),
+                         "compiled": lambda: compiled(lo)},
+                        COMPILED_GRAD_BIG_REPS)
+    reading = {"workload": name, "live_segments_by_seed": live,
+               "captured": [short, entry.counts], "captures": 2,
+               "regrowth_call_s": round(grown_s, 4),
+               "capture_s": round(entry.capture_s, 4),
+               "max_abs_err": 0.0, "held_mb_compiled": round(held_mb, 1),
+               "eager_ms": [round(x, 3) for x in times["eager"]],
+               "compiled_ms": [round(x, 3) for x in times["compiled"]],
+               "reps": COMPILED_GRAD_BIG_REPS}
+    print(f"compiled grad {name} ({smi_line}): live segments by seed "
+          f"{live}; captured {short} at seed {lo}, a replay at seed {hi} "
+          f"found a lane alive and captured {entry.counts} ({grown_s:.3f} s, "
+          f"the call's result the warm-up's eager one); 2 captures; "
+          f"replays "
+          f"at seeds {hi} and {lo} (the latter through "
+          f"{live[hi] - live[lo]} dead segments) equal eager, max |d| 0; "
+          f"eager {times['eager'][0]:.3f} ms, compiled "
+          f"{times['compiled'][0]:.3f} ms at seed {lo} by CUDA events; the "
+          f"graph holds {held_mb:.1f} MB", flush=True)
+    return ccounts, reading
+
+
+def compiled_fit_reading(cornell, camera, smi_line):
+    """Phase 33's fit at 64^2, depth 2, 2 spp: the fit through the
+    captured fwd+bwd (its first step eager, the second captured, the rest
+    replayed) against the same fit on the eager fwd+bwd, losses and final
+    parameters bit for bit; a 3+3 resume against 6 steps under
+    deterministic algorithms through the captured step; seconds a step
+    each way, and the update's kernels a step (Adam and the clip, eager).
+    Returns (one replayed step's counts, the reading)."""
+    import statistics
+    import torch
+    from pbrpathtracer_tpu_torch import RenderConfig, fit
+    from pbrpathtracer_tpu_torch.diff import fit as fit_module
+    from pbrpathtracer_tpu_torch.diff.loss import (eager_loss_and_grad,
+                                                   loss_and_grad)
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    cfg = RenderConfig(width=64, height=64, max_depth=2, spp=2, seed=3)
+    zero = torch.zeros((64, 64, 3), device=cornell.device)
+    GRADS.clear()
+    captures = GRADS.captures
+    steps_s = {"compiled": [], "eager": []}
+
+    def run(key):
+        t = [time.perf_counter()]
+
+        def tick(s, loss, params):
+            t.append(time.perf_counter())
+        res = fit(cornell, camera, cfg, zero, steps=FIT_STEPS, lr=3e-2,
+                  callback=tick)
+        steps_s[key] = [b - a for a, b in zip(t[1:], t[2:])]
+        return res
+    compiled = run("compiled")
+    require(GRADS.captures == captures + 1,
+            f"fit: {GRADS.captures - captures} captures in {FIT_STEPS} steps")
+    fit_module.loss_and_grad = eager_loss_and_grad
+    try:
+        eager = run("eager")
+    finally:
+        fit_module.loss_and_grad = loss_and_grad
+    same = compiled.losses == eager.losses and all(
+        torch.equal(compiled.params[k], eager.params[k])
+        for k in eager.params)
+    require(same, "fit: the captured fit differs from the eager fit")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "fit.npz")
+            full = fit(cornell, camera, cfg, zero, steps=6, lr=3e-2)
+            fit(cornell, camera, cfg, zero, steps=3, lr=3e-2,
+                checkpoint_path=ckpt, checkpoint_every=3)
+            resumed = fit(cornell, camera, cfg, zero, steps=6, lr=3e-2,
+                          checkpoint_path=ckpt, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resume_same = resumed.losses == full.losses and all(
+        torch.equal(full.params[k], resumed.params[k]) for k in full.params)
+    require(resume_same, "fit: the resumed captured fit differs from 6 steps")
+    # one step's pieces, as the fit runs them: the replayed fwd+bwd, then
+    # Adam's update and the clip (eager)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in compiled.params.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=3e-2)
+
+    def update():
+        loss, grads = loss_and_grad(params, cornell, camera, cfg, zero)
+        for k, p in params.items():
+            p.grad = grads[k]
+        opt.step()
+        with torch.no_grad():
+            for k, v in fit_module.clip_params(params).items():
+                params[k].copy_(v)
+    # (the fit's key: these steps replay)
+    _, ccounts = counted_run("fit step, compiled", update,
+                             ("intersect_dense", "gather_rows_t",
+                              "gather_rows_t_bwd"), ("intersect_list",))
+    kernels = checked_kernels("fit step", update)
+    step_kernels = sum(c for c, _ in kernels.values())
+    fwd_bwd = checked_kernels("fit step's fwd+bwd", lambda: loss_and_grad(
+        params, cornell, camera, cfg, zero))
+    update_kernels = step_kernels - sum(c for c, _ in fwd_bwd.values())
+    step_ms = sum(us for _, us in kernels.values()) / 1e3
+    # why the update stays eager: torch's capturable Adam (the one a graph
+    # could hold) against the eager one on the same gradients
+    grads = [loss_and_grad(params, cornell, camera, cfg, zero, seed=s)[1]
+             for s in range(FIT_STEPS)]
+    moved = []
+    for capturable in (False, True):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        adam = torch.optim.Adam(list(leaves.values()), lr=3e-2,
+                                capturable=capturable)
+        for g in grads:
+            for k, p in leaves.items():
+                p.grad = g[k]
+            adam.step()
+        moved.append(leaves)
+    adam_gap = max(max_abs(moved[0][k], moved[1][k]) for k in params)
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in steps_s.items()}
+    reading = {"workload": f"fit, 64x64 depth 2 spp 2, {FIT_STEPS} steps",
+               "captures": 1, "losses_equal": same,
+               "resume_3_3_equal_6": resume_same,
+               "step_ms_host_median": {k: round(v, 3)
+                                       for k, v in med.items()},
+               "device_ms_step": round(step_ms, 4),
+               "device_kernels_step": step_kernels,
+               "update_kernels": update_kernels,
+               "capturable_adam_max_abs_diff": adam_gap}
+    print(f"compiled grad fit 64x64 depth 2 spp 2 ({smi_line}): "
+          f"{FIT_STEPS} steps, 1 capture; losses and final parameters equal "
+          f"the eager fit's bit for bit; 3+3 resume = 6 under deterministic "
+          f"algorithms; host ms a step (median after the capture) "
+          f"compiled {med['compiled']:.3f} ms, eager {med['eager']:.3f} ms; "
+          f"a step's device time {step_ms:.3f} ms in {step_kernels} kernels, "
+          f"{update_kernels} of them Adam's update and the clip (eager); "
+          f"capturable Adam's parameters after {FIT_STEPS} steps differ from "
+          f"the eager Adam's by {adam_gap:.3g}"
+          + (" (so the update stays eager)" if adam_gap else ""),
+          flush=True)
+    return ccounts, reading
+
+
+def compiled_grad_phase(cornell, spheres, big, camera, mcam, dev, smi_line):
+    """Phase 33: every gradient entry that the JAX package compiles, eager
+    against compiled. Returns the launch counts of the compiled runs, by
+    path, for the kernels line."""
+    import torch
+    from pbrpathtracer_tpu_torch import Camera, RenderConfig
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    from pbrpathtracer_tpu_torch.scene.builders import translucent_scene
+    t0 = time.time()
+    k1 = (("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"),
+          ("intersect_list",))
+    k4 = (("intersect_list", "gather_rows_t", "gather_rows_t_bwd"),
+          ("intersect_dense",))
+    lcam = Camera.make(**CAM_POSE, **LENS).to(dev)
+    flag = RenderConfig(**FLAGSHIP)
+    lens = dict(materials=True, camera_lens=True)
+    work = [(f"flagship fwd+bwd, remat {m}", cornell, camera,
+             flag.replace(remat_segments=m), {}, COMPILED_GRAD_REPS, k1)
+            for m in ("off", "hits", "all")]
+    work += [(f"flagship fwd+bwd behind a lens, hit_vjp {m}", cornell, lcam,
+              flag.replace(hit_vjp=m), lens, COMPILED_GRAD_REPS, k1)
+             for m in ("winner", "autodiff")]
+    work += [
+        ("GGX spheres fwd+bwd", spheres, camera, flag.replace(brdf="ggx"),
+         {}, COMPILED_GRAD_REPS, k1),
+        ("50k material gradient 512x512 depth 3", big, mcam,
+         RenderConfig(width=RUNG3_SIZE, height=RUNG3_SIZE, max_depth=3,
+                      spp=1), {}, COMPILED_GRAD_BIG_REPS, k4)]
+    counts, readings = {}, []
+    for name, scene, cam, cfg, select, reps, (launched, never) in work:
+        c, r = compiled_grad_reading(name, scene, cam, cfg, select, reps,
+                                     launched, never, smi_line)
+        counts[f"compiled fwd+bwd: {name}, by replay"] = c
+        readings.append(r)
+    deep = translucent_scene()
+    dcfg = RenderConfig(**DEEP, remat_segments="hits").with_auto_segments(
+        deep)
+    c, r = regrowth_reading(deep, lcam, dcfg, smi_line)
+    counts["compiled fwd+bwd: deep translucent, by replay"] = c
+    readings.append(r)
+    c, r = compiled_fit_reading(cornell, camera, smi_line)
+    counts["compiled fit step, 64x64"] = c
+    readings.append(r)
+    GRADS.clear()
+    torch.cuda.synchronize()
+    print("compiled grad: " + json.dumps(readings), flush=True)
+    print(f"phase 33 (compiled gradient): {time.time() - t0:.1f} s",
+          flush=True)
+    return counts
 
 
 # --latency: what a user waits for where a key is new, timed the same way
@@ -3384,7 +3801,7 @@ def main():
     zero = torch.zeros((512, 512, 3), device=dev)
     for fn in counters:
         fn.launches = 0
-    loss, grads = grad_render(cornell, camera, cfg, zero)
+    loss, grads = eager_grad_render(cornell, camera, cfg, zero)
     torch.cuda.synchronize()
     bwd_launches = {fn.__name__: fn.launches for fn in counters}
     finite = bool(torch.isfinite(loss)) and all(
@@ -3403,10 +3820,10 @@ def main():
     remat_ms, remat_mb = {}, {}
     for mode in ("hits", "off", "all", "off", "hits"):
         c = cfg.replace(remat_segments=mode)
-        ms = cuda_ms(lambda: grad_render(cornell, camera, c, zero), 2)
+        ms = cuda_ms(lambda: eager_grad_render(cornell, camera, c, zero), 2)
         remat_ms.setdefault(mode, []).append(ms)
-        remat_mb[mode] = peak_mb(lambda: grad_render(cornell, camera, c,
-                                                     zero))
+        remat_mb[mode] = peak_mb(lambda: eager_grad_render(cornell, camera,
+                                                           c, zero))
     fwd_ms = cuda_ms(lambda: render(cornell, camera, cfg), 5)
     print(f"timing fwd+bwd ({smi_line}): forward {fwd_ms:.3f} ms | "
           + " | ".join(f"{m}: {', '.join(f'{x:.3f}' for x in v)} ms, peak "
@@ -3534,6 +3951,10 @@ def main():
     app_counts.update(compiled_phase(cornell, spheres, k4["scene"],
                                      k4["million"], camera, k4["camera"],
                                      loaded, dev, smi_line))
+    # ---- 33. the compiled gradient against the eager fwd+bwd ----
+    app_counts.update(compiled_grad_phase(cornell, spheres, k4["scene"],
+                                          camera, k4["camera"], dev,
+                                          smi_line))
 
     print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
           flush=True)

@@ -15,7 +15,12 @@ autograd graph to record, their samples go through CUDA graphs
 (``engine/compiled.py``, the JAX package's ``_jit_render``): the first
 sample renders eagerly, the second is captured, the later ones replay, with
 the eager render's result bit for bit (``ops.integrator.render_sample`` is
-the eager sample). ``grad_render`` and ``fit`` are eager.
+the eager sample). ``grad_render`` and ``fit``'s steps reach the compiled
+fwd+bwd through ``diff.loss.loss_and_grad`` (the JAX package's
+``_jit_grad``): on the card a key's first call runs eagerly, its second
+captures one CUDA graph of the fwd+bwd, and later calls replay it, with the
+eager result bit for bit (``diff.loss.eager_loss_and_grad`` is the eager
+program). On the CPU every entry runs eagerly.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from .scene.scene import Camera, MaterialSpec, Scene
 def grad_render(scene: Scene, camera: Camera, cfg: RenderConfig, target,
                 materials=True, textures=False, camera_lens=False, seed=None):
     """(loss, grads dict) of the L2 pixel loss against ``target``, w.r.t.
-    the parameters that ``get_params`` selects."""
+    the parameters that ``get_params`` selects; compiled on the card
+    (``loss_and_grad``)."""
     params = get_params(scene, camera, materials=materials, textures=textures,
                         camera_lens=camera_lens)
     return loss_and_grad(params, scene, camera, cfg, target, seed)

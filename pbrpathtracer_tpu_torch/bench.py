@@ -20,9 +20,12 @@ port's forward steps replay the sample captured in CUDA graphs
 segment, the seed a device value, and between two segments one flag read
 back from the card (``ops/integrator.drive``), so the forward slope is the
 card's time plus one graph launch and one read-back per segment. The
-fwd+bwd step is eager PyTorch: the host issues each segment's operators
-while the card waits, and its slope is host-bound wall time per step.
-Beside them, ``device_ms_fwd`` and
+fwd+bwd steps replay the fwd+bwd captured in one CUDA graph
+(``engine.compiled.GRADS``), as the JAX bench runs ``fb_jit``: the
+parameters, target and seed copied in, one graph launch, and one flag read
+back after it (whether the captured segments were enough), so its slope is
+the card's time plus that one read-back per step. Beside them,
+``device_ms_fwd`` and
 ``device_ms_fwdbwd`` are the card's busy time in one step: the sum of its
 kernels' durations in a ``torch.profiler`` trace (or, where the profiler
 delivers no device events, CUDA events around one step, idle time
@@ -61,7 +64,7 @@ import time
 
 import torch
 
-from .diff.loss import loss_and_grad
+from .diff.loss import eager_loss_and_grad, loss_and_grad
 from .diff.params import get_params
 from .engine.compiled import SAMPLES
 from .engine.config import RenderConfig
@@ -142,7 +145,10 @@ def fwd_step(scene, camera, cfg):
 
 
 def fwdbwd_step(scene, camera, cfg, params, target):
-    """step(seed): the loss and its gradients w.r.t. ``params``."""
+    """step(seed): the loss and its gradients w.r.t. ``params``. On the
+    card it replays the captured fwd+bwd with the seed as a device value
+    (the first step of a scene is eager, the second captures, the later
+    ones replay)."""
     return lambda s: loss_and_grad(params, scene, camera, cfg, target, seed=s)
 
 
@@ -163,9 +169,10 @@ def roofline_costs(scene, camera, cfg, live_segments):
         lambda: torch.sum(render_sample(scene, camera, canon, 0, seed=0)))
     params = get_params(scene, camera, materials=True)
     target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
-    _, fwdbwd = count_program(lambda: fwdbwd_step(
-        scene, camera, canon.replace(remat_segments="hits"), params,
-        target)(0))
+    # and the eager fwd+bwd
+    _, fwdbwd = count_program(lambda: eager_loss_and_grad(
+        params, scene, camera, canon.replace(remat_segments="hits"), target,
+        seed=0))
     return fwd, fwdbwd
 
 
@@ -328,7 +335,9 @@ def measure_flagship(extra_workloads=True, big_scenes=None):
                       "costs cancelled); the forward steps replay the "
                       "sample captured in CUDA graphs (one graph and one "
                       "flag read back per segment, the seed a device "
-                      "value); the fwd+bwd step is eager and host-bound",
+                      "value); the fwd+bwd steps replay the fwd+bwd "
+                      "captured in one CUDA graph (one flag read back per "
+                      "step)",
             "roofline_graph": "canonical: the live segments only, "
                               "remat-hits for fwd+bwd; eager operators by "
                               "TorchDispatchMode, K1-K4 from their launch "

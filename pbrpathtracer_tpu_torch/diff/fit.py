@@ -1,6 +1,16 @@
 """Inverse-rendering optimization loop, as ``pbrpathtracer_tpu.diff.fit``:
 Adam on the dict of differentiable parameters.
 
+Each step's fwd+bwd is ``loss_and_grad``: on the card it replays the
+captured fwd+bwd (``engine/compiled.py``; the first step eager, the second
+captured, every later one replayed), which the JAX package runs under
+``jax.jit`` with the update. Adam's update and the clip stay eager, about a
+dozen foreach launches a step: torch's capturable Adam computes its bias
+corrections in f32 on the card where the eager one takes them in double on
+the host, so it would not give the eager fit's parameters bit for bit. A
+step updates only after its gradients are final (a replay that found its
+captured segments too few re-runs the fwd+bwd, never the update).
+
 Checkpoint/resume: parameters, optimizer state, the absolute step and the
 loss history are saved together, and a resume is trajectory-exact: each
 step renders with seed ``cfg.seed + step``, so an interrupted fit continues
@@ -23,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from .loss import l2_image_loss
+from .loss import loss_and_grad
 from .params import clip_params, get_params, set_params
 
 
@@ -99,9 +109,10 @@ def fit(scene, camera, cfg, target, *, steps=100, lr=2e-2,
 
     for s in range(start_step, steps):
         seed = cfg.seed + (s if sample_offset_per_step else 0)
-        opt.zero_grad(set_to_none=True)
-        loss = l2_image_loss(params, scene, camera, cfg, target, seed=seed)
-        loss.backward()
+        loss, grads = loss_and_grad(params, scene, camera, cfg, target,
+                                    seed=seed)
+        for k, p in params.items():
+            p.grad = grads[k]
         opt.step()
         with torch.no_grad():
             for k, v in clip_params(params).items():

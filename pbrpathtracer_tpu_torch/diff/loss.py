@@ -1,12 +1,22 @@
 """Differentiable rendering losses and gradient entry points, as
-``pbrpathtracer_tpu.diff.loss``."""
+``pbrpathtracer_tpu.diff.loss``.
+
+``loss_and_grad`` is the port's counterpart of the JAX package's
+``jax.jit(jax.value_and_grad(l2_image_loss))``: on a CUDA scene it replays
+a fwd+bwd captured in a CUDA graph (``engine.compiled.GRADS``; a key's
+first call runs eagerly, its second captures, later ones replay, with the
+eager result bit for bit). ``eager_loss_and_grad`` is the same program
+run eagerly, as every CPU call runs it: the gradient's ``render_sample``,
+for code that watches the eager program (its launch shapes, its
+operators).
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.integrator import render
+from ..ops.integrator import SamplePlan, render, run_segments
 from .params import set_params
 
 
@@ -24,18 +34,63 @@ def l2_image_loss(params, scene, camera, cfg, target, seed=None):
     return torch.mean((img - target.to(img.device)) ** 2)
 
 
-def loss_and_grad(params, scene, camera, cfg, target, seed=None):
-    """(loss, grads): the loss as a detached scalar tensor and a dict of
-    gradients keyed like ``params``. ``params`` are taken as fresh leaves;
-    the tensors passed in are not modified."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+def sampled_loss(scene, camera, cfg, target, seed=None, counts=None):
+    """(loss, segments run per sample, tail flag per sample): the L2 loss
+    of ``render``'s image, sample by sample as ``render`` sums them, on the
+    program that ``loss_and_grad`` differentiates.
+
+    ``counts=None`` runs each sample as ``render`` does, skipping its dead
+    tail (a flag read back per segment). Otherwise sample k runs exactly
+    ``counts[k]`` segments and reads nothing back (``run_segments``): the
+    schedule of a captured fwd+bwd."""
+    remat = cfg.resolved_remat()
+    accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                        device=scene.device)
+    runs, tails = [], []
+    for k in range(cfg.spp):
+        radiance, run, tail = run_segments(
+            SamplePlan(scene, camera, cfg, k, seed, None, remat),
+            None if counts is None else counts[k])
+        accum = accum + radiance
+        runs.append(run)
+        tails.append(tail)
+    img = (accum / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    return torch.mean((img - target.to(img.device)) ** 2), runs, tails
+
+
+def fwd_bwd(leaves, scene, camera, cfg, target, seed=None, counts=None):
+    """(loss, grads, segments run per sample, tail flags) with ``leaves``
+    (tensors that require grad) put in place by ``set_params``: the loss
+    detached, the gradients keyed like ``leaves`` (zeros where a leaf
+    takes no part). ``counts`` as ``sampled_loss``'s."""
     with torch.enable_grad():
-        loss = l2_image_loss(leaves, scene, camera, cfg, target, seed)
+        s, c = set_params(scene, camera, leaves)
+        loss, runs, tails = sampled_loss(s, c, cfg, target, seed, counts)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
     return loss.detach(), {
         k: torch.zeros_like(v) if g is None else g
-        for (k, v), g in zip(leaves.items(), grads)}
+        for (k, v), g in zip(leaves.items(), grads)}, runs, tails
+
+
+def eager_loss_and_grad(params, scene, camera, cfg, target, seed=None):
+    """``loss_and_grad`` run eagerly, on any device. ``params`` are taken
+    as fresh leaves; the tensors passed in are not modified."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    return fwd_bwd(leaves, scene, camera, cfg, target, seed)[:2]
+
+
+def loss_and_grad(params, scene, camera, cfg, target, seed=None):
+    """(loss, grads): the loss as a detached scalar tensor and a dict of
+    gradients keyed like ``params``, fresh tensors; the tensors passed in
+    are not modified. On a CUDA scene by the captured fwd+bwd
+    (``engine.compiled.GRADS``), elsewhere eagerly
+    (``eager_loss_and_grad``); ``seed`` may be an int or a 0-d integer
+    tensor."""
+    if scene.device.type == "cuda":
+        from ..engine.compiled import GRADS
+        return GRADS.loss_and_grad(params, scene, camera, cfg, target, seed)
+    return eager_loss_and_grad(params, scene, camera, cfg, target, seed)
 
 
 def finite_difference_grad(loss_fn, params, key, eps=1e-3, indices=None):

@@ -1,7 +1,10 @@
-"""Captured samples: the port's counterpart of the JAX package's compiled
-forward entries (``ops/integrator._accum_chunk`` under ``render``,
-``api._jit_render``, ``engine/session``'s ``one_pass``, the bench's forward
-steps).
+"""Captured samples and captured gradients: the port's counterpart of the
+JAX package's compiled entries. The forward ones (``ops/integrator
+._accum_chunk`` under ``render``, ``api._jit_render``,
+``engine/session``'s ``one_pass``, the bench's forward steps) replay a
+captured sample (``SAMPLES``); the gradient ones (``api._jit_grad`` behind
+``grad_render``, the fit ``step``, the bench's ``fb_jit``) replay a
+captured fwd+bwd (``GRADS``).
 
 Where the JAX package compiles a sample with ``jax.jit``, the port captures
 it into CUDA graphs and replays them. A sample is split as
@@ -16,40 +19,72 @@ scatters that undo compaction and the block pixel order) runs eagerly.
 The graphs hold the eager render's kernels and operators in its order, so
 a replay equals the eager render bit for bit.
 
-Seed and sample index are 0-d device tensors of the graphs, written before
-each replay: a new seed or sample index replays the same graphs.
+A captured fwd+bwd (``CompiledGrad``) is one graph: ``set_params`` of the
+entry's own leaves, the ``cfg.spp`` samples, the L2 loss and
+``torch.autograd.grad`` (``diff.loss.fwd_bwd``), with the autograd
+graph's backward (K3 and every index backward in it, and the recompute of
+``remat_segments``) recorded at capture. A backward cannot be cut at the
+segments, so nothing is read back inside it: each sample runs as many
+segments as the eager warm-up ran (``ops.integrator.run_segments``), which
+is safe because a segment over lanes that are all dead is the identity,
+bit for bit in value and in gradient. After a replay the host reads one
+flag, whether a lane was still alive after any sample's last captured
+segment; if one was, the key captures again, each sample's count the
+larger of the new warm-up's and the old one, and that call returns the
+warm-up's eager result. So no caller sees a result cut short: the fit
+updates only after this read. The JAX package tests the same flag on the
+device (``lax.cond`` in its scan).
 
-* **Key.** The ``RenderConfig`` (its ``seed`` and ``spp`` aside: neither
-  changes a sample's graphs), the lane count, the device, and the identity
-  of every scene and camera leaf (pointer, shape, dtype, stride). Change a
-  scene with ``dataclasses.replace``, never in place (the kernels'
-  per-geometry preparations say the same).
-* **When a key captures.** Its first call renders eagerly on the current
-  stream, as ``render_sample`` does, and only notes the key: a one-shot
-  render, or the first pass after an edit, costs what the eager render
-  costs. The second call runs the sample eagerly on a side stream (where
-  every per-geometry preparation has already happened outside capture:
-  K1's rows, K4's collapsed tree with its host read-back, K2's one-time
-  function attributes), and that eager result is the call's result; then
-  the graphs are captured, on the same stream, in ``thread_local`` mode,
-  so that another thread may read the card meanwhile (``RenderSession``'s
-  ``image()`` while ``run_async`` captures). Every later call replays.
+Seed and sample index are 0-d device tensors of the graphs, written before
+each replay: a new seed or sample index replays the same graphs. A captured
+fwd+bwd also copies the caller's parameters and target into its own
+tensors before each replay.
+
+* **Key.** A sample's: the ``RenderConfig`` (its ``seed`` and ``spp``
+  aside: neither changes a sample's graphs), the lane count, the device,
+  and the identity of every scene and camera leaf (pointer, shape, dtype,
+  stride). A fwd+bwd's: the ``RenderConfig`` but its ``seed``, the
+  parameters' names, shapes and dtypes, the target's shape and dtype, the
+  device, whether deterministic algorithms are on (an index backward is
+  recorded as the mode has it), and the identity of every scene and camera
+  leaf that is not a parameter. Change a scene with
+  ``dataclasses.replace``, never in place (the kernels' per-geometry
+  preparations say the same).
+* **When a key captures.** Its first call runs eagerly on the current
+  stream, as ``render_sample`` or ``eager_loss_and_grad`` does, and only
+  notes the key: a one-shot render or gradient, or the first pass after an
+  edit, costs what the eager one costs. The second call runs eagerly on a
+  side stream (where every per-geometry preparation has already happened
+  outside capture: K1's rows, K4's collapsed tree with its host read-back,
+  K2's one-time function attributes, autograd's device threads), and that
+  eager result is the call's result; then the graphs are captured, on the
+  same stream, in ``thread_local`` mode, so that another thread may read
+  the card meanwhile (``RenderSession``'s ``image()`` while ``run_async``
+  captures; autograd's device thread runs the backward into the capture).
+  Every later call replays.
 * **Lifetime.** No entry holds its scene. Each key watches every node of
   its scene (the dataclasses, on which the kernels cache their
-  preparations, and their tensors) and every tensor of its camera: when
-  one of them is collected, the key and its graphs go, so a scene that its
-  caller drops is freed, and a pointer of the key cannot come back as
-  another scene's. At most ``CACHE_SIZE`` keys are kept; the least
-  recently used one goes first.
+  preparations, and their tensors) and every tensor of its camera, a
+  fwd+bwd's key those of them that are not parameters: when one of them
+  is collected, the key and its graphs go, so a scene that its caller
+  drops is freed, and a pointer of the key cannot come back as another
+  scene's. What an entry made outside its capture and its graphs read (a
+  camera moved to the card, its own leaves, target and seed) it holds. At
+  most ``CACHE_SIZE`` keys are kept per cache; the least recently used one
+  goes first.
 * **Counting.** The kernel wrappers count at capture, where nothing
   launches: each graph keeps what they counted (``native.launches_during``),
-  takes it back, and adds it at every replay.
+  takes it back, and adds it at every replay. (``ops.hit
+  .autodiff_intersector.queries``, which counts queries in plain torch and
+  no kernel, counts at eager runs only.)
 * **No fallback.** A capture or replay that fails raises; nothing carries
   on eagerly. While ``native.launch_records`` is open the compiled entries
-  raise: a replay records no launch shapes (count ``render_sample``).
+  raise: a replay records no launch shapes (count ``render_sample`` or
+  ``eager_loss_and_grad``). Neither cache takes a CPU scene.
 
 Nothing here runs on the CPU: ``ops.integrator`` calls in only for CUDA
-scenes that record no autograd graph.
+scenes that record no autograd graph, ``diff.loss.loss_and_grad`` only for
+CUDA scenes; the CPU runs every entry eagerly.
 """
 
 from __future__ import annotations
@@ -63,6 +98,8 @@ import weakref
 
 import torch
 
+from ..diff.loss import fwd_bwd
+from ..diff.params import set_params
 from ..kernels import native
 from ..ops.integrator import SamplePlan, _records_graph, drive, unscatter
 
@@ -104,12 +141,59 @@ def sample_key(scene, camera, cfg) -> tuple:
             tuple(_identity(x) for x in _leaves(camera)))
 
 
+def _marked(params, scene, camera):
+    """(scene, camera) with the string "param" in place of each parameter
+    of ``params``: the leaves that remain are what a fwd+bwd reads as it
+    finds them."""
+    return set_params(scene, camera, dict.fromkeys(params, "param"))
+
+
+def grad_key(params, scene, camera, cfg, target) -> tuple:
+    """What a captured fwd+bwd depends on (module docstring, "Key")."""
+    s, c = _marked(params, scene, camera)
+    return (cfg.replace(seed=0), scene.device,
+            torch.are_deterministic_algorithms_enabled(),
+            tuple((k, tuple(v.shape), v.dtype) for k, v in params.items()),
+            (tuple(target.shape), target.dtype),
+            tuple(_identity(x) for x in _leaves(s)),
+            tuple(_identity(x) for x in _leaves(c)))
+
+
 def _set(static, value):
     """Write an int or an integer tensor into a 0-d graph input."""
     if isinstance(value, torch.Tensor):
         static.copy_(value)
     else:
         static.fill_(int(value))
+
+
+def _capture(stream, pool, body):
+    """(graph, ``body()``, {counter: launches per replay}): ``body``
+    captured on ``stream`` into ``pool``. The counters are left as they
+    were: nothing launched at capture."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out, delta = native.launches_during(body)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass   # the capture was invalidated by the error
+            raise
+        graph.capture_end()
+    native.add_launches(delta, -1)
+    return graph, out, delta
+
+
+def _follow(entry):
+    """Before a replay: the current stream waits for the stream that last
+    used ``entry``'s tensors."""
+    cur = torch.cuda.current_stream(entry.device)
+    if cur != entry._last_stream:
+        cur.wait_stream(entry._last_stream)
+        entry._last_stream = cur
 
 
 class CompiledSample:
@@ -160,20 +244,7 @@ class CompiledSample:
         return radiance
 
     def _capture(self, body):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-            try:
-                out, delta = native.launches_during(body)
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass   # the capture was invalidated by the error
-                raise
-            graph.capture_end()
-        native.add_launches(delta, -1)   # nothing launched at capture
+        graph, out, delta = _capture(self.stream, self.pool, body)
         self.graphs.append(graph)
         self.launches.append(delta)
         self.outputs.append(out)
@@ -187,10 +258,7 @@ class CompiledSample:
         """The sample at (seed, sample_idx) by the captured graphs; the
         radiance, for the current stream. It may be the pool's own buffer
         (no epilogue): the caller consumes it before the next replay."""
-        cur = torch.cuda.current_stream(self.device)
-        if cur != self._last_stream:
-            cur.wait_stream(self._last_stream)
-            self._last_stream = cur
+        _follow(self)
         _set(self.seed, seed)
         _set(self.sample_idx, sample_idx)
         return drive(self)
@@ -207,17 +275,102 @@ class CompiledSample:
                          self.order)
 
 
-class SampleCache:
-    """Captured samples by key (module docstring), at most ``CACHE_SIZE``
-    keys. Thread-safe: one lock covers capture, replay and the caller's use
-    of the result."""
+class CompiledGrad:
+    """The captured fwd+bwd of one key (module docstring): one graph over
+    the entry's own parameter leaves, target and seed word, each sample
+    running ``counts[k]`` segments."""
+
+    def __init__(self, params, target, device):
+        self.device = device
+        with torch.inference_mode(False):
+            self.leaves = {k: torch.empty(v.shape, dtype=v.dtype,
+                                          device=device).requires_grad_(True)
+                           for k, v in params.items()}
+            self.target = torch.empty(target.shape, dtype=target.dtype,
+                                      device=device)
+            self.seed = torch.zeros((), dtype=torch.int64, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.counts = None   # segments per sample, as captured
+        self.graph = None
+        self.launches = {}   # {counter: launches per replay}
+        self.outputs = None  # the graph's (loss, grads, tail flag or None)
+        self.camera_held = []   # tensors made here that the graph reads
+        self.capture_s = None
+        self._last_stream = None
+
+    def _load(self, params, target, seed):
+        with torch.no_grad():
+            for k, leaf in self.leaves.items():
+                leaf.copy_(params[k])
+            self.target.copy_(target)
+        _set(self.seed, seed)
+
+    def first(self, params, scene, camera, cfg, target, seed):
+        """The eager fwd+bwd on the side stream, then the capture, each
+        sample's segment count the larger of the warm-up's and the last
+        capture's. Returns the warm-up's (loss, grads), for the current
+        stream."""
+        cur = torch.cuda.current_stream(self.device)
+        if self.graph is not None:   # a regrowth: the old graph goes first
+            torch.cuda.synchronize(self.device)
+            self.graph = self.outputs = None
+        # a camera on the host is moved here, outside the capture, and
+        # what the move made is held: the graph reads it
+        moved = camera.to(self.device)
+        own = {id(x) for x in _leaves(camera)}
+        self.camera_held = [x for x in _leaves(moved)
+                            if isinstance(x, torch.Tensor) and id(x) not in own]
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            self._load(params, target, seed)
+            loss, grads, runs, _ = fwd_bwd(self.leaves, scene, moved, cfg,
+                                           self.target, self.seed)
+        cur.wait_stream(self.stream)
+        for x in (loss, *grads.values()):
+            x.record_stream(cur)
+        self.counts = runs if self.counts is None else [
+            max(a, b) for a, b in zip(runs, self.counts)]
+
+        def body():
+            out_loss, out_grads, _, tails = fwd_bwd(
+                self.leaves, scene, moved, cfg, self.target, self.seed,
+                self.counts)
+            tails = [t for t in tails if t is not None]
+            return out_loss, out_grads, (torch.stack(tails).any() if tails
+                                         else None)
+        t0 = time.perf_counter()
+        self.graph, self.outputs, self.launches = _capture(
+            self.stream, torch.cuda.graph_pool_handle(), body)
+        self.capture_s = time.perf_counter() - t0
+        self._last_stream = cur
+        return loss, grads
+
+    def replay(self, params, target, seed):
+        """(loss, grads) by the captured graph, fresh tensors for the
+        current stream; None where a sample's last captured segment left a
+        lane alive (the caller captures again)."""
+        _follow(self)
+        self._load(params, target, seed)
+        self.graph.replay()
+        native.add_launches(self.launches)
+        loss, grads, tail = self.outputs
+        if tail is not None and bool(tail):
+            return None
+        return loss.clone(), {k: g.clone() for k, g in grads.items()}
+
+
+class _KeyedCache:
+    """Entries by key, at most ``CACHE_SIZE`` keys, each key watching what
+    its entry's graphs read (module docstring); the least recently used key
+    goes first. Thread-safe: one lock covers capture, replay and the
+    caller's use of the result."""
 
     def __init__(self):
-        # key -> its CompiledSample, or None after the key's first call
+        # key -> its entry, or None after the key's first call
         self._entries = collections.OrderedDict()
         self._watches = {}   # key -> the weakref.finalize of what it watches
         self._lock = threading.RLock()
-        self.captures = 0   # keys captured so far
+        self.captures = 0   # captures so far
 
     def __len__(self) -> int:
         """The keys that hold graphs."""
@@ -228,66 +381,30 @@ class SampleCache:
             for key in list(self._entries):
                 self._drop(key)
 
-    def entry(self, scene, camera, cfg):
-        """The captured sample of this key, or None before its second
-        call."""
-        return self._entries.get(sample_key(scene, camera, cfg))
-
-    def sample(self, scene, camera, cfg, sample_idx, seed=None,
-               consume=torch.clone):
-        """``consume(radiance)`` of one sample, f32[N, 3]: eager at the
-        first call of a key, eager then captured at the second, replayed
-        after (module docstring). ``consume`` runs under the lock, before
-        any other replay: the default hands back a fresh tensor, never the
-        graphs' buffer. ``seed`` (default ``cfg.seed``) and ``sample_idx``
-        are ints or 0-d integer tensors."""
-        if scene.device.type != "cuda":
-            raise ValueError(f"a captured sample needs a CUDA scene, got "
-                             f"{scene.device}")
+    def _refuse(self, scene, what):
         if native.launch_records is not None:
             raise RuntimeError(
                 "record_launches is open: a replay records no launch "
-                "shapes; count the eager render (render_sample)")
-        if _records_graph(scene, camera):
-            raise ValueError("a captured sample records no autograd graph: "
-                             "render eagerly, or turn grad off")
-        seed = cfg.seed if seed is None else seed
-        key = sample_key(scene, camera, cfg)
-        with self._lock, torch.cuda.device(scene.device), \
-                torch.inference_mode():
-            if key not in self._entries:
-                radiance = drive(SamplePlan(scene, camera, cfg, sample_idx,
-                                            seed))
-                self._note(key, scene, camera)
-            elif self._entries[key] is None:
-                entry = CompiledSample(scene, camera, cfg)
-                radiance = entry.first(seed, sample_idx)
-                self._entries[key] = entry
-                self._entries.move_to_end(key)
-                self.captures += 1
-                self._evict()
-            else:
-                self._entries.move_to_end(key)
-                radiance = self._entries[key].replay(seed, sample_idx)
-            return consume(radiance)
+                "shapes; count the eager program (render_sample, "
+                "eager_loss_and_grad)")
+        if scene.device.type != "cuda":
+            raise ValueError(f"a captured {what} needs a CUDA scene, got "
+                             f"{scene.device}")
 
-    def accumulate(self, scene, camera, cfg, accum, sample_start,
-                   num_samples: int, seed=None):
-        """``ops.integrator.render_accumulate`` by the captured samples."""
-        for k in range(num_samples):
-            accum = self.sample(scene, camera, cfg, sample_start + k, seed,
-                                consume=accum.add)
-        return accum
-
-    def _note(self, key, scene, camera):
-        """A key's first call: no graphs yet, its scene and camera
-        watched."""
+    def _watch(self, key, objs):
+        """A key's first call: no graphs yet, ``objs`` watched."""
         self._entries[key] = None
         watches = self._watches[key] = []
-        for x in _watched(scene, camera):
+        for x in objs:
             f = weakref.finalize(x, self._forget, key)
             f.atexit = False   # nothing to free when the process ends
             watches.append(f)
+        self._evict()
+
+    def _captured(self, key, entry):
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        self.captures += 1
         self._evict()
 
     def _evict(self):
@@ -308,5 +425,108 @@ class SampleCache:
             torch.cuda.synchronize(entry.device)
 
 
-# The process's cache, used by the port's entry points.
+class SampleCache(_KeyedCache):
+    """Captured samples by key (module docstring)."""
+
+    def entry(self, scene, camera, cfg):
+        """The captured sample of this key, or None before its second
+        call."""
+        return self._entries.get(sample_key(scene, camera, cfg))
+
+    def sample(self, scene, camera, cfg, sample_idx, seed=None,
+               consume=torch.clone):
+        """``consume(radiance)`` of one sample, f32[N, 3]: eager at the
+        first call of a key, eager then captured at the second, replayed
+        after (module docstring). ``consume`` runs under the lock, before
+        any other replay: the default hands back a fresh tensor, never the
+        graphs' buffer. ``seed`` (default ``cfg.seed``) and ``sample_idx``
+        are ints or 0-d integer tensors."""
+        self._refuse(scene, "sample")
+        if _records_graph(scene, camera):
+            raise ValueError("a captured sample records no autograd graph: "
+                             "render eagerly, or turn grad off")
+        seed = cfg.seed if seed is None else seed
+        key = sample_key(scene, camera, cfg)
+        with self._lock, torch.cuda.device(scene.device), \
+                torch.inference_mode():
+            if key not in self._entries:
+                radiance = drive(SamplePlan(scene, camera, cfg, sample_idx,
+                                            seed))
+                self._note(key, scene, camera)
+            elif self._entries[key] is None:
+                entry = CompiledSample(scene, camera, cfg)
+                radiance = entry.first(seed, sample_idx)
+                self._captured(key, entry)
+            else:
+                self._entries.move_to_end(key)
+                radiance = self._entries[key].replay(seed, sample_idx)
+            return consume(radiance)
+
+    def accumulate(self, scene, camera, cfg, accum, sample_start,
+                   num_samples: int, seed=None):
+        """``ops.integrator.render_accumulate`` by the captured samples."""
+        for k in range(num_samples):
+            accum = self.sample(scene, camera, cfg, sample_start + k, seed,
+                                consume=accum.add)
+        return accum
+
+    def _note(self, key, scene, camera):
+        self._watch(key, _watched(scene, camera))
+
+
+class GradCache(_KeyedCache):
+    """Captured fwd+bwd programs by key (module docstring)."""
+
+    def entry(self, params, scene, camera, cfg, target):
+        """The captured fwd+bwd of this key, or None before its second
+        call."""
+        return self._entries.get(grad_key(params, scene, camera, cfg,
+                                          target))
+
+    def loss_and_grad(self, params, scene, camera, cfg, target, seed=None):
+        """``diff.loss.loss_and_grad`` on a CUDA scene: (loss, grads),
+        fresh tensors, eager at the first call of a key, eager then
+        captured at the second, replayed after, captured again after a
+        replay whose tail flag is set (module docstring). ``seed``
+        (default ``cfg.seed``) is an int or a 0-d integer tensor."""
+        from ..diff.loss import eager_loss_and_grad
+        self._refuse(scene, "fwd+bwd")
+        seed = cfg.seed if seed is None else seed
+        key = grad_key(params, scene, camera, cfg, target)
+        with self._lock, torch.cuda.device(scene.device):
+            entry = self._entries.get(key)
+            if key not in self._entries:
+                out = eager_loss_and_grad(params, scene, camera, cfg, target,
+                                          seed)
+                self._note(key, params, scene, camera)
+            elif entry is None:
+                entry = CompiledGrad(params, target, scene.device)
+                out = entry.first(params, scene, camera, cfg, target, seed)
+                self._captured(key, entry)
+            else:
+                self._entries.move_to_end(key)
+                out = entry.replay(params, target, seed)
+                if out is None:
+                    try:
+                        out = entry.first(params, scene, camera, cfg, target,
+                                          seed)
+                    except BaseException:
+                        self._drop(key)   # no graph left to replay
+                        raise
+                    self.captures += 1
+            loss, grads = out
+            return loss, {k: g if g.device == params[k].device
+                          else g.to(params[k].device)
+                          for k, g in grads.items()}
+
+    def _note(self, key, params, scene, camera):
+        """Watch the nodes of the caller's scene and camera that are no
+        parameter: the marked pair still holds them."""
+        kept = {id(x) for x in _watched(*_marked(params, scene, camera))}
+        self._watch(key, [x for x in _watched(scene, camera)
+                          if id(x) in kept])
+
+
+# The process's caches, used by the port's entry points.
 SAMPLES = SampleCache()
+GRADS = GradCache()

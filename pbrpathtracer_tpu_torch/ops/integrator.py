@@ -13,7 +13,9 @@ The loop stops once every lane is dead (``skip_dead_segments``); that test
 reads one flag back from the device per segment. A sample is split where
 the compiled runner (``engine/compiled.py``) splits it, into a prologue
 (rays and the initial wavefront), one body per segment and an epilogue
-(the scatters): ``SamplePlan``, driven by ``drive``.
+(the scatters): ``SamplePlan``, driven by ``drive``, or by
+``run_segments`` with a fixed segment count, which reads nothing back (a
+captured fwd+bwd, whose backward cannot be cut at the segments).
 
 Compiled entries: on a CUDA scene, where no autograd graph is recorded,
 ``render`` and ``render_accumulate`` go through the captured samples of
@@ -229,12 +231,28 @@ def drive(plan):
     """Run a ``SamplePlan`` (or anything with its three methods, such as a
     captured sample) as the eager loop does: a segment runs only while its
     flag, read back from the device, says a lane is alive."""
+    return run_segments(plan)[0]
+
+
+def run_segments(plan, count=None):
+    """(radiance, segments run, tail flag) of a ``SamplePlan``.
+
+    ``count=None`` is ``drive``'s loop, which reads each flag back. A fixed
+    ``count`` runs exactly that many segments and reads nothing back, as a
+    captured fwd+bwd must (``engine/compiled.py``): a segment over lanes
+    that are all dead returns its input state bit for bit, in value and in
+    gradient, so running past the live segments changes nothing. The tail
+    flag is the device flag after the last segment run, where the eager
+    loop would test again (None where it would not): true means that
+    ``count`` cut live lanes short."""
     state, slot, flag = plan.prologue()
-    for seg in range(plan.n_segments):
-        if flag is not None and not bool(flag):
+    run = 0
+    for seg in range(plan.n_segments if count is None else count):
+        if count is None and flag is not None and not bool(flag):
             break
         state, slot, flag = plan.segment(seg, state, slot)
-    return plan.epilogue(state, slot)
+        run += 1
+    return plan.epilogue(state, slot), run, flag
 
 
 def _render_sample(scene, camera, cfg, sample_idx, pixel_idx, seed):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, and its
-compiled forward (``engine/compiled.py``) against the eager render, on the
-card.
+compiled forward and fwd+bwd (``engine/compiled.py``) against the eager
+render and the eager fwd+bwd, on the card.
 
 Every test here needs a CUDA card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -898,3 +898,197 @@ def test_a_failed_capture_raises(dev, monkeypatch):
     assert SAMPLES.captures == captures + 1
     with record_launches(), pytest.raises(RuntimeError):
         render(scene, cam, cfg)             # a replay records no shapes
+
+
+# ---- the compiled fwd+bwd: a captured fwd+bwd against the eager one ---------
+
+LENS = dict(focal_dist=2.2, aperture=0.04)
+GRAD_MODES = {"remat off": dict(remat_segments="off"),
+              "remat hits": dict(remat_segments="hits"),
+              "remat all": dict(remat_segments="all"),
+              "winner": dict(hit_vjp="winner"),
+              "autodiff": dict(hit_vjp="autodiff")}
+
+
+def _eager_grad(scene, cam, cfg, target, seed=None, **select):
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.diff.loss import eager_loss_and_grad
+    return eager_loss_and_grad(get_params(scene, cam, **select), scene, cam,
+                               cfg, target, seed)
+
+
+def _same_grad(a, b):
+    (la, ga), (lb, gb) = a, b
+    return torch.equal(la, lb) and list(ga) == list(gb) and all(
+        torch.equal(ga[k], gb[k]) for k in ga)
+
+
+@pytest.mark.parametrize("mode", list(GRAD_MODES))
+def test_compiled_grad_equals_eager_bit_for_bit(dev, mode):
+    """The first call of a key is eager, the second captures, later ones
+    replay: each, and a replay at a new seed, equal the eager fwd+bwd in
+    the loss and every gradient (materials and lens)."""
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    scene = builders.cornell_box()
+    cam = Camera.make(**POSE, **LENS).to(dev)
+    cfg = RenderConfig(width=32, height=32, max_depth=3, spp=2, seed=1,
+                       **GRAD_MODES[mode])
+    target = torch.full((32, 32, 3), 0.2, device=dev)
+    sel = dict(materials=True, camera_lens=True)
+    eager = _eager_grad(scene, cam, cfg, target, **sel)
+    captures = GRADS.captures
+    first = grad_render(scene, cam, cfg, target, **sel)
+    assert GRADS.captures == captures
+    second = grad_render(scene, cam, cfg, target, **sel)   # captured here
+    third = grad_render(scene, cam, cfg, target, **sel)
+    moved = grad_render(scene, cam, cfg, target, seed=cfg.seed + 1, **sel)
+    assert GRADS.captures == captures + 1
+    assert all(_same_grad(x, eager) for x in (first, second, third))
+    assert _same_grad(moved, _eager_grad(scene, cam, cfg, target,
+                                         seed=cfg.seed + 1, **sel))
+    assert not torch.equal(moved[0], eager[0])
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh3k"])
+def test_compiled_grad_launches_equal_eager(dev, name):
+    """K1 or K4, K2 and K3 by replay, counted as the graph launched them:
+    what the eager fwd+bwd launches."""
+    from pbrpathtracer_tpu_torch.kernels import native
+    scene, cam, cfg = _compiled_case(name, dev)
+    cfg = cfg.replace(spp=1)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    grad_render(scene, cam, cfg, target)
+    grad_render(scene, cam, cfg, target)      # captured here
+    counts = {}
+    for key, fn in (("eager", _eager_grad), ("replay", grad_render)):
+        before = {f: f.launches for f in native.COUNTED}
+        fn(scene, cam, cfg, target)
+        torch.cuda.synchronize()
+        counts[key] = {f: f.launches - n for f, n in before.items()}
+    assert counts["replay"] == counts["eager"]
+    route = KL.intersect_list if name == "mesh3k" else KI.intersect_dense
+    for f in (route, KP.gather_rows_t, KP.gather_rows_t_bwd):
+        assert counts["replay"][f] > 0
+    assert all(n == 0 for f, n in counts["replay"].items()
+               if f.__name__.endswith("_plain"))
+
+
+def test_compiled_grad_regrows_on_the_translucent_scene(dev):
+    """Captured at a seed whose samples run fewer segments than another
+    seed's: the replay at that seed finds a lane alive after its captured
+    segments, captures again with the larger counts and returns the eager
+    result; the first seed then replays through dead segments, bit-equal."""
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.diff.loss import fwd_bwd
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    scene = builders.translucent_scene()
+    cam = Camera.make(**POSE, **LENS).to(dev)
+    cfg = RenderConfig(width=12, height=10, max_depth=3, spp=2,
+                       max_segments=16)
+    target = torch.zeros((10, 12, 3), device=dev)
+    params = get_params(scene, cam)
+    runs = {}
+    for s in range(6):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        runs[s] = fwd_bwd(leaves, scene, cam, cfg, target, s)[2]
+    lo, hi = next((a, b) for a in runs for b in runs
+                  if any(x > y for x, y in zip(runs[b], runs[a])))
+    grad_render(scene, cam, cfg, target, seed=lo)
+    captures = GRADS.captures
+    grad_render(scene, cam, cfg, target, seed=lo)      # captured here
+    entry = GRADS.entry(params, scene, cam, cfg, target)
+    assert entry.counts == runs[lo] and GRADS.captures == captures + 1
+    grown = grad_render(scene, cam, cfg, target, seed=hi)
+    assert GRADS.captures == captures + 2
+    assert entry.counts == [max(a, b) for a, b in zip(runs[lo], runs[hi])]
+    assert _same_grad(grown, _eager_grad(scene, cam, cfg, target, seed=hi))
+    for s in (hi, lo):
+        assert _same_grad(grad_render(scene, cam, cfg, target, seed=s),
+                          _eager_grad(scene, cam, cfg, target, seed=s))
+    assert GRADS.captures == captures + 2
+
+
+def test_compiled_fit_equals_the_eager_fit_and_resumes(dev, tmp_path,
+                                                       monkeypatch):
+    """The fit's steps replay the captured fwd+bwd (Adam and the clip
+    eager): its losses and final parameters are the eager fit's bit for
+    bit, and under deterministic algorithms a 3+3 resume equals 6 steps."""
+    from pbrpathtracer_tpu_torch import fit
+    from pbrpathtracer_tpu_torch.diff import fit as fit_module
+    from pbrpathtracer_tpu_torch.diff.loss import eager_loss_and_grad
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    scene, cam = builders.cornell_box(), Camera.make(**POSE).to(dev)
+    cfg = RenderConfig(width=32, height=32, max_depth=2, spp=2, seed=3)
+    target = torch.zeros((32, 32, 3), device=dev)
+    captures = GRADS.captures
+    compiled = fit(scene, cam, cfg, target, steps=5, lr=3e-2)
+    assert GRADS.captures == captures + 1
+    with monkeypatch.context() as m:
+        m.setattr(fit_module, "loss_and_grad", eager_loss_and_grad)
+        eager = fit(scene, cam, cfg, target, steps=5, lr=3e-2)
+    assert compiled.losses == eager.losses
+    assert all(torch.equal(compiled.params[k], eager.params[k])
+               for k in eager.params)
+    ckpt = str(tmp_path / "fit.npz")
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = fit(scene, cam, cfg, target, steps=6, lr=3e-2)
+        fit(scene, cam, cfg, target, steps=3, lr=3e-2, checkpoint_path=ckpt,
+            checkpoint_every=3)
+        resumed = fit(scene, cam, cfg, target, steps=6, lr=3e-2,
+                      checkpoint_path=ckpt, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed.losses == full.losses
+    assert all(torch.equal(full.params[k], resumed.params[k])
+               for k in full.params)
+
+
+def test_a_dropped_scene_frees_its_gradient_entry(dev):
+    import gc
+    import weakref
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    grad_render(scene, cam, cfg, target)
+    grad_render(scene, cam, cfg, target)      # captured here
+    entry = weakref.ref(GRADS.entry(get_params(scene, cam), scene, cam, cfg,
+                                    target))
+    held = len(GRADS)
+    del scene
+    gc.collect()
+    assert entry() is None and len(GRADS) == held - 1
+
+
+def test_a_failed_gradient_capture_raises(dev, monkeypatch):
+    """A host read-back inside a segment: the eager call takes it, the
+    capture cannot; the call raises and caches no graph, and the next call
+    without it captures."""
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.engine.compiled import GRADS
+    from pbrpathtracer_tpu_torch.ops import integrator as pint
+    from pbrpathtracer_tpu_torch.utils.roofline import record_launches
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    shade = pint.shade_segment
+
+    def reads_back(*args, **kwargs):
+        out = shade(*args, **kwargs)
+        float(out.radiance.sum())
+        return out
+    monkeypatch.setattr(pint, "shade_segment", reads_back)
+    grad_render(scene, cam, cfg, target)      # eager: the key noted
+    captures = GRADS.captures
+    with pytest.raises(RuntimeError):
+        grad_render(scene, cam, cfg, target)
+    assert GRADS.captures == captures
+    assert GRADS.entry(get_params(scene, cam), scene, cam, cfg,
+                       target) is None
+    monkeypatch.setattr(pint, "shade_segment", shade)
+    assert _same_grad(grad_render(scene, cam, cfg, target),
+                      _eager_grad(scene, cam, cfg, target))
+    assert GRADS.captures == captures + 1
+    with record_launches(), pytest.raises(RuntimeError):
+        grad_render(scene, cam, cfg, target)   # a replay records no shapes
