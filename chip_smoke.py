@@ -4,7 +4,7 @@ sharded and measurement paths once on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 [--root TREE]   # phase 29 alone, on TREE's port
-    python3 chip_smoke.py --compiled           # phases 32 and 33 alone
+    python3 chip_smoke.py --compiled           # phases 32 to 34 alone
     python3 chip_smoke.py --latency [--root TREE]   # a new key's wait
 
 (``--root`` takes a tree of the port that has ``utils/roofline.py``, where
@@ -189,8 +189,12 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                are started beside the CLI phase's processes, so that four
                interpreters start at once, and waited for before phase 24.
                ``render_multihost`` of the flagship equals the one-process
-               image bit for bit on both ranks; one fused step leaves
-               ``array_equal`` parameters on both, through K1, K2 and K3.
+               image bit for bit on both ranks; three fused steps (the
+               first eager, the second captured, the third replayed) leave
+               losses and parameters ``array_equal`` on both, through K1,
+               K2 and K3, and equal to the two ranks' steps run in this
+               process (each shard's fused program eagerly, the parts
+               summed in rank order, the step's own update).
 27. config 5 -- ``million_tri_scene()`` at 1024x1024, depth 3, through
                ``render_sharded`` at world size 1, 16 spp in 4 chunks by
                ``sample_start`` against one 16-spp pass (allclose 1e-6; K4
@@ -311,13 +315,35 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                eager fit's bit for bit, a 3+3 resume equals 6 under
                deterministic algorithms, ms a step, the update's kernels.
                One ``compiled grad:`` JSON line holds the readings.
+34. compiled sharded -- the sharded programs that the JAX package
+               compiles, on an NCCL group of world size 1, each replayed
+               from CUDA graphs with its collectives launched eagerly
+               between the replays, against its eager program, each from
+               empty caches: ``render_sharded`` of the flagship (beside
+               ``render``), the fused step at spp 1 and 2, the overlapped
+               step at spp 2 with ``async_op`` on and off (Adam 1e-2), the
+               config-5 render of the 1M scene at 1024^2 depth 3 per spp,
+               one config-5 fit step on the 200k scene at 128^2 depth 2
+               (Adam 3e-2). Each: max |d| = 0 in the image, or in the loss,
+               the gradients the update saw and the parameters after it, at
+               the compiled path's first and second call, a replay, a new
+               seed, after the timings and after the profiler; launches and
+               all-reduces (count and bytes) of a replay equal to an eager
+               call's; no capture after the second call; capture seconds and
+               the MB the graphs hold; eager and compiled in turns, medians
+               of 8 (3 on config 5's scenes) by CUDA events and host wall;
+               device time and kernels by ``torch.profiler``, K1-K4 in the
+               trace against the counters. One ``compiled sharded:`` JSON
+               line holds the readings.
 Every render above runs as a user calls it: on the card a forward render,
 session pass and bench forward step go through the captured sample (its
 first sample of a key eager, the second captured, the later ones replayed;
-phase 32), and ``grad_render``, a fit step and the bench's fwd+bwd step
-through the captured fwd+bwd (phase 33), except where a phase reads what
-the eager program does (its launch shapes, its fetched ids, its
-determinism), which runs ``eager_render`` or ``eager_grad_render``.
+phase 32), ``grad_render``, a fit step and the bench's fwd+bwd step
+through the captured fwd+bwd (phase 33), and the sharded render and train
+steps through captured samples and fwd+bwd programs (phase 34), except
+where a phase reads what the eager program does (its launch shapes, its
+fetched ids, its determinism), which runs ``eager_render``,
+``eager_grad_render``, ``eager_render_sharded`` or ``step.eager``.
 ``--latency`` times what meets a new key (``latency_main``), on this
 checkout's port or another tree's, so that a parent and its change are
 read by the same code.
@@ -1738,17 +1764,24 @@ FIT_ADAM_REACH, FIT_LIGHT_FALL = 12 * 3e-2, 0.2
 WORKER_LIMIT_S = 180
 
 
-def capture_sgd(lr):
-    """An SGD factory whose optimizer keeps the gradients of its last step
-    (``seen``, in the leaves' order): what the all-reduce handed it."""
-    import torch
+def recording_optimizer(base, **kw):
+    """A factory of ``base(leaves, **kw)`` optimizers that keep the
+    gradients of their last step (``seen``, in the leaves' order): what the
+    all-reduce handed them."""
 
-    class Capture(torch.optim.SGD):
+    class Recording(base):
         def step(self, closure=None):
             self.seen = [p.grad.clone() for g in self.param_groups
                          for p in g["params"]]
             return super().step(closure)
-    return lambda leaves: Capture(leaves, lr=lr)
+    return lambda leaves: Recording(leaves, **kw)
+
+
+def capture_sgd(lr):
+    """An SGD factory whose optimizer keeps the gradients of its last step
+    (``recording_optimizer``)."""
+    import torch
+    return recording_optimizer(torch.optim.SGD, lr=lr)
 
 
 def counted_reduces(fn):
@@ -1901,10 +1934,15 @@ def train_step_phase(cornell, camera, mesh, tex_grad_like, smi_line):
     return counts, o_counts
 
 
+# phase 26's fused steps per worker: the first eager, the second captured,
+# the third a replay (at seeds 0, 1, 2)
+WORKER_STEPS = 3
+
+
 def shard_worker(rank, world, store, outdir):
     """One of phase 26's processes: joins the gloo group on the one card,
-    renders the flagship with ``render_multihost``, takes one fused step, and
-    writes image, loss and parameters to ``outdir``."""
+    renders the flagship with ``render_multihost``, takes WORKER_STEPS fused
+    steps, and writes image, losses and parameters to ``outdir``."""
     import functools
     t_worker = time.time()
     import numpy as np
@@ -1933,17 +1971,22 @@ def shard_worker(rank, world, store, outdir):
             scene, camera, cfg, functools.partial(torch.optim.Adam, lr=1e-2),
             mesh)
         n = cfg.num_pixels
-        loss = step(params, mh.wavefront_sharding(
-            torch.arange(n, dtype=torch.int32, device=scene.device), mesh),
-            mh.wavefront_sharding(torch.full((n, 3), 0.25,
-                                             device=scene.device), mesh), 0)
-        return img, loss, params
-    (img, loss, params), counts = counted_run(
+        pix = mh.wavefront_sharding(
+            torch.arange(n, dtype=torch.int32, device=scene.device), mesh)
+        target = mh.wavefront_sharding(
+            torch.full((n, 3), 0.25, device=scene.device), mesh)
+        losses = [float(step(params, pix, target, s))
+                  for s in range(WORKER_STEPS)]
+        return img, losses, params
+    (img, losses, params), counts = counted_run(
         f"worker {rank}", run,
         ("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"),
         ("intersect_list",))
+    from pbrpathtracer_tpu_torch.engine.compiled import FUSED
+    require(FUSED.captures == 1, f"worker {rank}: {FUSED.captures} captures "
+            f"in {WORKER_STEPS} fused steps")
     np.savez(os.path.join(outdir, f"p{rank}.npz"), img=img.cpu().numpy(),
-             loss=float(loss), counts=json.dumps(counts),
+             loss=np.asarray(losses), counts=json.dumps(counts),
              seconds=time.time() - t_worker,
              **{k: v.detach().cpu().numpy() for k, v in params.items()})
     torch.distributed.destroy_process_group()
@@ -2004,6 +2047,43 @@ class ShardWorkers:
             self.tmp = None
 
 
+def two_rank_steps(cornell, camera, world):
+    """The workers' fused steps in this one process: each rank's shard
+    through the fused program eagerly, the parts summed in rank order as
+    the all-reduce sums them, the update by the step's own code. Returns
+    (losses, parameters)."""
+    import functools
+    import torch
+    from pbrpathtracer_tpu_torch import RenderConfig, get_params
+    from pbrpathtracer_tpu_torch.diff.loss import fused_fwd_bwd
+    from pbrpathtracer_tpu_torch.parallel.mesh import Mesh, local_shard
+    from pbrpathtracer_tpu_torch.parallel.render import make_train_step
+    cfg = RenderConfig(**FLAGSHIP)
+    dev = cornell.device
+    n = cfg.num_pixels
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    target = torch.full((n, 3), 0.25, device=dev)
+    params = {k: v.detach().clone()
+              for k, v in get_params(cornell, camera).items()}
+    step = make_train_step(cornell, camera, cfg, functools.partial(
+        torch.optim.Adam, lr=1e-2), Mesh(None, 0, 1, dev))
+    leaves = step.leaves(params)
+    keys = sorted(params)
+    losses = []
+    for s in range(WORKER_STEPS):
+        parts = [fused_fwd_bwd(
+            dict(zip(keys, leaves)), cornell, camera, cfg,
+            local_shard(target, Mesh(None, r, world, dev)),
+            local_shard(pix, Mesh(None, r, world, dev)), s)
+            for r in range(world)]
+        loss = functools.reduce(lambda a, b: a + b, [p[0] for p in parts])
+        grads = [functools.reduce(lambda a, b: a + b,
+                                  [p[1][k] for p in parts]) for k in keys]
+        step.update(params, leaves, grads)
+        losses.append(float(loss))
+    return losses, {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
 def two_process_phase(cornell, camera, workers, smi_line):
     """Phase 26. Returns rank 0's launch counts, or None where this torch
     has no gloo."""
@@ -2022,6 +2102,9 @@ def two_process_phase(cornell, camera, workers, smi_line):
     agree = all(np.array_equal(res[0][k], res[1][k]) for k in keys)
     moved = float(np.abs(res[0]["mat.diffuse"]
                          - cornell.materials.diffuse.cpu().numpy()).max())
+    one_losses, one_params = two_rank_steps(cornell, camera, world)
+    one_same = (list(res[0]["loss"]) == one_losses and all(
+        np.array_equal(res[0][k], v) for k, v in one_params.items()))
     counts = json.loads(str(res[0]["counts"]))
     print(f"two processes on the one card ({smi_line}): gloo available: "
           f"True; {world} workers on cuda:0 over gloo (buffers staged "
@@ -2030,11 +2113,16 @@ def two_process_phase(cornell, camera, workers, smi_line):
           f"{' and '.join(f'{x:.1f}' for x in secs)} s; render_multihost "
           f"512x512 = "
           f"the one-process render bit for bit on every rank: {img_same}; "
-          f"loss {float(res[0]['loss']):.8f}, loss and parameters "
-          f"array_equal across ranks after one fused step: {agree} (max |d "
-          f"diffuse| {moved:.4f}); rank 0 launches {counts}", flush=True)
+          f"losses {[round(float(x), 8) for x in res[0]['loss']]} of "
+          f"{WORKER_STEPS} fused steps (the first eager, the second "
+          f"captured, the third replayed), losses and parameters array_equal "
+          f"across ranks: {agree}, and with the two ranks' steps in this one "
+          f"process: {one_same} (max |d diffuse| {moved:.4f}); rank 0 "
+          f"launches {counts}", flush=True)
     require(img_same, "a rank's image differs from the one-process render")
     require(agree and moved > 0, "the ranks' parameters differ after a step")
+    require(one_same, "the workers' captured steps differ from the two "
+            "ranks' steps in one process")
     return counts
 
 
@@ -3105,7 +3193,7 @@ def compiled_phase(cornell, spheres, big, million, camera, mcam, loaded,
 
 
 def compiled_main():
-    """Phases 32 and 33 alone, with the scenes they need
+    """Phases 32, 33 and 34 alone, with the scenes they need
     (``--compiled``)."""
     import torch
     from pbrpathtracer_tpu_torch import Camera, builders
@@ -3127,9 +3215,12 @@ def compiled_main():
     spheres, camera = (builders.cornell_spheres_scene(),
                        Camera.make(**CAM_POSE).to(dev))
     mcam = mesh_scene_camera().to(dev)
-    compiled_phase(cornell, spheres, big, million_tri_scene(), camera, mcam,
+    million = million_tri_scene()
+    compiled_phase(cornell, spheres, big, million, camera, mcam,
                    (loaded, ed.tracer_camera(device=dev)), dev, smi_line)
     compiled_grad_phase(cornell, spheres, big, camera, mcam, dev, smi_line)
+    compiled_sharded_phase(cornell, camera, million,
+                           mesh_scene(200_000, accel="always"), smi_line)
     print(smi_line, flush=True)
 
 
@@ -3511,6 +3602,259 @@ def compiled_grad_phase(cornell, spheres, big, camera, mcam, dev, smi_line):
     torch.cuda.synchronize()
     print("compiled grad: " + json.dumps(readings), flush=True)
     print(f"phase 33 (compiled gradient): {time.time() - t0:.1f} s",
+          flush=True)
+    return counts
+
+
+# Phase 34: the compiled sharded entries against their eager programs on the
+# NCCL group of world size 1, timed in turns (the medians are read); fewer
+# on config 5's scenes. The config-5 fit step's start: the materials'
+# diffuse at 0.6 and their emission at 1.5 of the truth, as phase 27's
+SHARDED_REPS, SHARDED_BIG_REPS = 8, 3
+
+
+def sharded_pair(kind, scene, camera, cfg, mesh, optimizer=None,
+                 async_op=None, target=None, start=None):
+    """(eager(seed), compiled(seed)): one sharded path run two ways from
+    the same start, each call returning fresh copies of what it made: the
+    image (``kind`` "render": ``eager_render_sharded`` against
+    ``render_sharded``), or a step's loss, the gradients its update saw and
+    the parameters after it (``step.eager`` against ``step``)."""
+    import torch
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.parallel.mesh import broadcast_params
+    from pbrpathtracer_tpu_torch.parallel.render import (
+        eager_render_sharded, make_train_step, make_train_step_overlapped,
+        render_sharded)
+    if kind == "render":
+        return (lambda s: (eager_render_sharded(scene, camera, cfg, mesh=mesh,
+                                                seed=s),),
+                lambda s: (render_sharded(scene, camera, cfg, mesh=mesh,
+                                          seed=s),))
+    make = make_train_step if kind == "fused" else make_train_step_overlapped
+    n = cfg.num_pixels
+    pix = torch.arange(n, dtype=torch.int32, device=scene.device)
+    if target is None:
+        target = torch.full((n, 3), 0.25, device=scene.device)
+
+    def way(eager):
+        params = broadcast_params(
+            get_params(scene, camera) if start is None else start, mesh)
+        step = make(scene, camera, cfg, optimizer, mesh)
+        if async_op is not None:
+            step.async_op = async_op
+        call = step.eager if eager else step
+
+        def run(seed):
+            loss = call(params, pix, target, seed)
+            return (loss.clone(), *step.optimizer.seen,
+                    *(params[k].detach().clone() for k in sorted(params)))
+        return run
+    return way(True), way(False)
+
+
+def sharded_reading(name, pair, reps, launched, never, smi_line,
+                    beside=None, regrowth=False):
+    """Phase 34 on one sharded path, from empty caches: the eager program
+    and the compiled one called in step, each result held against the
+    other (max |d| over every tensor: image, or loss, gradients and
+    parameters after the update) at the compiled path's first and second
+    call (where the keys capture), a replay and a new seed, and again
+    after the timings; launches and all-reduces of a replay against an
+    eager call; no capture after the second call but a regrowth, where
+    ``regrowth`` allows one (a seed whose samples need more segments than
+    the capture runs: the key captures again); the segments
+    captured per sample; capture seconds and the
+    MB that the two calls leave reserved (the graphs' pools); medians in
+    turns (with ``beside``'s calls, if any); device time and kernels by
+    the profiler. Returns (the replay's counts, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch.engine.compiled import FUSED, SAMPLES, VJPS
+    caches = (SAMPLES, FUSED, VJPS)
+    for c in caches:
+        c.clear()
+    for fn in (beside or {}).values():   # their keys captured before
+        fn()
+        fn()
+    captures = sum(c.captures for c in caches)
+    capture_s = sum(c.capture_s for c in caches)
+    regrowths = FUSED.regrowths + VJPS.regrowths
+    eager, compiled = pair()
+
+    def err(a, b):
+        return max(max_abs(x, y) for x, y in zip(a, b))
+    (e1, ecounts), e_calls, e_bytes = counted_reduces(lambda: counted_run(
+        f"{name}, eager", lambda: eager(0), launched, never))
+    e2 = eager(0)
+
+    def two_calls():
+        c1, t1 = wall_s(lambda: compiled(0))
+        d1 = err(e1, c1)
+        del c1
+        c2, t2 = wall_s(lambda: compiled(0))
+        return d1, err(e2, c2), t1, t2
+    (d1, d2, first_s, second_s), held_mb = held_after(two_calls)
+    n_captures = sum(c.captures for c in caches) - captures
+    cap_s = sum(c.capture_s for c in caches) - capture_s
+    require(n_captures > 0, f"{name}: nothing captured in two calls")
+    e3 = eager(0)
+    (c3, ccounts), c_calls, c_bytes = counted_reduces(lambda: counted_run(
+        f"{name}, compiled replay", lambda: compiled(0), launched, never))
+    d3 = err(e3, c3)
+    d4 = err(eager(7), compiled(7))
+    del e1, e2, e3, c3
+    fns = {"eager": lambda: eager(0), "compiled": lambda: compiled(0),
+           **(beside or {})}
+    times = timed_turns(fns, reps)
+    d5 = err(eager(0), compiled(0))
+    # after a regrowth a replay runs the grown counts: its launches now
+    eager(0)
+    (_, after), _, _ = counted_reduces(lambda: counted_run(
+        f"{name}, compiled replay after the timings", lambda: compiled(0),
+        launched, never))
+    device = {}
+    for key in ("compiled", "eager"):
+        k = checked_kernels(f"{name}, {key}", fns[key])
+        device[key] = (round(sum(us for _, us in k.values()) / 1e3, 4),
+                       sum(c for c, _ in k.values()))
+    d6 = err(eager(0), compiled(0))
+    recaptured = sum(c.captures for c in caches) - captures - n_captures
+    regrown = FUSED.regrowths + VJPS.regrowths - regrowths
+    segments = [e.counts for c in (FUSED, VJPS)
+                for e in c._entries.values() if e is not None]
+    errs = {"first_call": d1, "second_call": d2, "replay": d3,
+            "new_seed": d4, "after_timing": d5, "after_profiling": d6}
+    require(max(errs.values()) == 0,
+            f"{name}: compiled differs from eager: {errs}")
+    require(ccounts == ecounts, f"{name}: compiled launches {ccounts} != "
+            f"eager {ecounts}")
+    require((c_calls, c_bytes) == (e_calls, e_bytes),
+            f"{name}: all-reduces {c_calls} of {c_bytes} bytes, eager "
+            f"{e_calls} of {e_bytes}")
+    require(recaptured == regrown and (regrowth or regrown == 0),
+            f"{name}: captured {recaptured} times again after its second "
+            f"call (a replay, a new seed), {regrown} of them regrowths")
+    for c in caches:
+        c.clear()
+    reading = {
+        "workload": name, "captures": n_captures, "recaptures": recaptured,
+        "regrowths": regrown, "segments_captured": segments,
+        "capture_s": round(cap_s, 4), "first_call_s": round(first_s, 4),
+        "second_call_s": round(second_s, 4), "max_abs_err": errs,
+        "launches_equal": True, "launches": ccounts,
+        "launches_after_timing": after, "all_reduces": c_calls,
+        "all_reduce_bytes": c_bytes,
+        **{f"{k}_ms": [round(x, 3) for x in v] for k, v in times.items()},
+        "device_ms_eager": device["eager"][0],
+        "device_kernels_eager": device["eager"][1],
+        "device_ms_compiled": device["compiled"][0],
+        "device_kernels_compiled": device["compiled"][1],
+        "held_mb_compiled": round(held_mb, 1), "reps": reps}
+    print(f"compiled sharded {name} ({smi_line}): {n_captures} captures in "
+          f"{cap_s:.3f} s (first call {first_s:.3f} s, second "
+          f"{second_s:.3f} s), the graphs hold {held_mb:.1f} MB; max |d| vs "
+          f"eager 0 at the first and second call, a replay, a new seed, "
+          f"after the timings and the profiler; launches equal {ccounts}; "
+          f"all-reduces {c_calls} ({c_bytes} bytes) as eager; "
+          + (f"{regrown} regrowth (a seed that needs more segments: the key "
+             f"captured again)" if regrown else "no recapture")
+          + f", segments captured {segments}"
+          + ("" if after == ccounts else
+             f" (a replay after it launches {after})")
+          + f"; medians of {reps} in turns, "
+          f"CUDA events / host wall: "
+          + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ms"
+                      for k, v in times.items())
+          + f"; device eager {device['eager'][0]} ms in {device['eager'][1]} "
+          f"kernels | compiled {device['compiled'][0]} ms in "
+          f"{device['compiled'][1]} kernels (torch.profiler; K1, K2, K3 and "
+          f"K4 in the trace equal the counters)", flush=True)
+    return ccounts, reading
+
+
+def compiled_sharded_phase(cornell, camera, million, scene200k, smi_line):
+    """Phase 34: every sharded entry that the JAX package compiles, eager
+    against compiled, on an NCCL group of world size 1. Returns the launch
+    counts of the compiled runs, by path, for the kernels line."""
+    import functools
+    import torch
+    from pbrpathtracer_tpu_torch import RenderConfig, get_params, render
+    from pbrpathtracer_tpu_torch.dist import multihost as mh
+    from pbrpathtracer_tpu_torch.parallel.mesh import make_mesh
+    from pbrpathtracer_tpu_torch.parallel.render import eager_render_sharded
+    from pbrpathtracer_tpu_torch.scene.big_scenes import mesh_scene_camera
+    t0 = time.time()
+    k1 = (("intersect_dense", "gather_rows_t"), ("intersect_list",))
+    k1_bwd = (("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"),
+              ("intersect_list",))
+    k4 = (("intersect_list", "gather_rows_t"), ("intersect_dense",))
+    k4_bwd = (("intersect_list", "gather_rows_t", "gather_rows_t_bwd"),
+              ("intersect_dense",))
+    flag = RenderConfig(**FLAGSHIP)
+    mcam = mesh_scene_camera().to(cornell.device)
+    c5 = RenderConfig(width=CONFIG5_SIZE, height=CONFIG5_SIZE, max_depth=3,
+                      spp=1)
+    fcfg = RenderConfig(width=128, height=128, max_depth=2, spp=1)
+    adam = recording_optimizer(torch.optim.Adam, lr=1e-2)
+    counts, readings = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        got = mh.initialize(init_method=f"file://{tmp}/store",
+                            num_processes=1, process_id=0, timeout_s=60)
+        try:
+            mesh = make_mesh()
+            require(got == (0, 1) and torch.distributed.get_backend()
+                    == "nccl" and not mesh.staged,
+                    f"phase 34: the group is not NCCL on the card: {got}")
+            true = get_params(scene200k, mcam)
+            start = dict(true, **{
+                "mat.diffuse": true["mat.diffuse"] * 0.6,
+                "mat.emissive_intensity":
+                    true["mat.emissive_intensity"] * 1.5})
+            fit_target = eager_render_sharded(
+                scene200k, mcam, fcfg, mesh=mesh).reshape(-1, 3)
+            work = [
+                ("render_sharded, flagship", "render", cornell, camera, flag,
+                 {}, SHARDED_REPS, k1,
+                 {"render": lambda: render(cornell, camera, flag)}),
+                ("fused step, flagship, spp 1", "fused", cornell, camera,
+                 flag, dict(optimizer=adam), SHARDED_REPS, k1_bwd, None),
+                ("fused step, flagship, spp 2", "fused", cornell, camera,
+                 flag.replace(spp=2), dict(optimizer=adam), SHARDED_REPS,
+                 k1_bwd, None),
+                ("overlapped step, flagship, spp 2, async_op on",
+                 "overlapped", cornell, camera, flag.replace(spp=2),
+                 dict(optimizer=adam, async_op=True), SHARDED_REPS, k1_bwd,
+                 None),
+                ("overlapped step, flagship, spp 2, async_op off",
+                 "overlapped", cornell, camera, flag.replace(spp=2),
+                 dict(optimizer=adam, async_op=False), SHARDED_REPS, k1_bwd,
+                 None),
+                (f"config 5 render, 1M, {CONFIG5_SIZE}x{CONFIG5_SIZE} depth "
+                 f"3, per spp", "render", million, mcam, c5, {},
+                 SHARDED_BIG_REPS, k4, None),
+                ("config 5 fit step, 200k, 128x128 depth 2", "fused",
+                 scene200k, mcam, fcfg,
+                 dict(optimizer=recording_optimizer(torch.optim.Adam,
+                                                    lr=3e-2),
+                      target=fit_target, start=start), SHARDED_BIG_REPS,
+                 k4_bwd, None),
+            ]
+            for name, kind, scene, cam, cfg, kw, reps, (launched, never), \
+                    beside in work:
+                # the 200k scene's samples at 128^2 depth 2 run fewer live
+                # segments at some seeds than at others: its key may regrow
+                c, r = sharded_reading(
+                    name, functools.partial(sharded_pair, kind, scene, cam,
+                                            cfg, mesh, **kw),
+                    reps, launched, never, smi_line, beside,
+                    regrowth=scene is scene200k)
+                counts[f"compiled sharded: {name}, by replay"] = c
+                readings.append(r)
+        finally:
+            torch.distributed.destroy_process_group()
+    torch.cuda.synchronize()
+    print("compiled sharded: " + json.dumps(readings), flush=True)
+    print(f"phase 34 (compiled sharded): {time.time() - t0:.1f} s",
           flush=True)
     return counts
 
@@ -3955,6 +4299,9 @@ def main():
     app_counts.update(compiled_grad_phase(cornell, spheres, k4["scene"],
                                           camera, k4["camera"], dev,
                                           smi_line))
+    # ---- 34. the compiled sharded entries against their eager programs ----
+    app_counts.update(compiled_sharded_phase(cornell, camera, k4["million"],
+                                             k4["scene200k"], smi_line))
 
     print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
           flush=True)

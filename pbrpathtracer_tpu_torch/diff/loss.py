@@ -9,6 +9,12 @@ eager result bit for bit). ``eager_loss_and_grad`` is the same program
 run eagerly, as every CPU call runs it: the gradient's ``render_sample``,
 for code that watches the eager program (its launch shapes, its
 operators).
+
+The sharded train steps (``parallel/render.py``) differentiate two more
+programs, written here once for their eager and their captured runs
+(``engine.compiled.FUSED`` and ``VJPS``): ``fused_fwd_bwd``, a pixel
+shard's squared error over the global element count and its gradient, and
+``sample_vjp``, one sample's vector-Jacobian product with a cotangent.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ def l2_image_loss(params, scene, camera, cfg, target, seed=None):
     return torch.mean((img - target.to(img.device)) ** 2)
 
 
-def sampled_loss(scene, camera, cfg, target, seed=None, counts=None):
+def sampled_loss(scene, camera, cfg, target, seed=None, counts=None,
+                 pixel_idx=None, divisor=None):
     """(loss, segments run per sample, tail flag per sample): the L2 loss
     of ``render``'s image, sample by sample as ``render`` sums them, on the
     program that ``loss_and_grad`` differentiates.
@@ -42,35 +49,81 @@ def sampled_loss(scene, camera, cfg, target, seed=None, counts=None):
     ``counts=None`` runs each sample as ``render`` does, skipping its dead
     tail (a flag read back per segment). Otherwise sample k runs exactly
     ``counts[k]`` segments and reads nothing back (``run_segments``): the
-    schedule of a captured fwd+bwd."""
+    schedule of a captured fwd+bwd.
+
+    ``pixel_idx`` (i32[n]) renders only those lanes, and the image is then
+    their mean radiance f32[n, 3], not reshaped. ``divisor=None`` takes the
+    mean squared error; an int takes the sum of squares over it."""
     remat = cfg.resolved_remat()
-    accum = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
-                        device=scene.device)
+    n = cfg.width * cfg.height if pixel_idx is None else pixel_idx.shape[0]
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
     runs, tails = [], []
     for k in range(cfg.spp):
         radiance, run, tail = run_segments(
-            SamplePlan(scene, camera, cfg, k, seed, None, remat),
+            SamplePlan(scene, camera, cfg, k, seed, pixel_idx, remat),
             None if counts is None else counts[k])
         accum = accum + radiance
         runs.append(run)
         tails.append(tail)
-    img = (accum / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
-    return torch.mean((img - target.to(img.device)) ** 2), runs, tails
+    img = accum / float(cfg.spp)
+    if pixel_idx is None:
+        img = img.reshape(cfg.height, cfg.width, 3)
+    err = (img - target.to(img.device)) ** 2
+    loss = torch.mean(err) if divisor is None else torch.sum(err) / divisor
+    return loss, runs, tails
 
 
-def fwd_bwd(leaves, scene, camera, cfg, target, seed=None, counts=None):
+def _dense(leaves, grads):
+    """``autograd.grad``'s results keyed like ``leaves``, zeros where a
+    leaf takes no part."""
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
+
+
+def fwd_bwd(leaves, scene, camera, cfg, target, seed=None, counts=None,
+            pixel_idx=None, divisor=None):
     """(loss, grads, segments run per sample, tail flags) with ``leaves``
     (tensors that require grad) put in place by ``set_params``: the loss
     detached, the gradients keyed like ``leaves`` (zeros where a leaf
-    takes no part). ``counts`` as ``sampled_loss``'s."""
+    takes no part). ``counts``, ``pixel_idx`` and ``divisor`` as
+    ``sampled_loss``'s."""
     with torch.enable_grad():
         s, c = set_params(scene, camera, leaves)
-        loss, runs, tails = sampled_loss(s, c, cfg, target, seed, counts)
+        loss, runs, tails = sampled_loss(s, c, cfg, target, seed, counts,
+                                         pixel_idx, divisor)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-    return loss.detach(), {
-        k: torch.zeros_like(v) if g is None else g
-        for (k, v), g in zip(leaves.items(), grads)}, runs, tails
+    return loss.detach(), _dense(leaves, grads), runs, tails
+
+
+def fused_fwd_bwd(leaves, scene, camera, cfg, target, pixel_idx, seed=None,
+                  counts=None):
+    """The fused train step's program: ``fwd_bwd`` of the lanes
+    ``pixel_idx`` against ``target`` (f32[n, 3]), their squared error over
+    the global element count ``3 * cfg.num_pixels``, so that the sum over
+    the ranks of the loss and of its gradients is the mean loss and its
+    gradients."""
+    return fwd_bwd(leaves, scene, camera, cfg, target, seed, counts,
+                   pixel_idx, 3 * cfg.num_pixels)
+
+
+def sample_vjp(leaves, scene, camera, cfg, cot, sample_idx, pixel_idx=None,
+               seed=None, counts=None):
+    """(None, grads, [segments run], [tail flag]): the overlapped train
+    step's program, ``autograd.grad(sample, leaves, grad_outputs=cot)`` of
+    sample ``sample_idx`` (an int or a 0-d integer tensor) over the lanes
+    ``pixel_idx``, with ``leaves`` put in place by ``set_params``; the
+    gradients keyed like ``leaves``. ``counts`` as ``sampled_loss``'s, of
+    length 1."""
+    with torch.enable_grad():
+        s, c = set_params(scene, camera, leaves)
+        radiance, run, tail = run_segments(
+            SamplePlan(s, c, cfg, sample_idx, seed, pixel_idx,
+                       cfg.resolved_remat()),
+            None if counts is None else counts[0])
+        grads = torch.autograd.grad(radiance, list(leaves.values()),
+                                    grad_outputs=cot, allow_unused=True)
+    return None, _dense(leaves, grads), [run], [tail]
 
 
 def eager_loss_and_grad(params, scene, camera, cfg, target, seed=None):

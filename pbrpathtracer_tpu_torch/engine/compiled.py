@@ -4,24 +4,34 @@ JAX package's compiled entries. The forward ones (``ops/integrator
 ``engine/session``'s ``one_pass``, the bench's forward steps) replay a
 captured sample (``SAMPLES``); the gradient ones (``api._jit_grad`` behind
 ``grad_render``, the fit ``step``, the bench's ``fb_jit``) replay a
-captured fwd+bwd (``GRADS``).
+captured fwd+bwd (``GRADS``). The sharded ones (``parallel/render.py``'s
+``shard_map`` under ``render_sharded`` and the two train steps, and
+``dist/multihost.py``'s, which call them) replay captured samples over a
+pixel shard and two more captured fwd+bwd programs, the fused step's
+(``FUSED``) and the overlapped step's per-sample VJP (``VJPS``); their
+collectives run eagerly between the replays.
 
 Where the JAX package compiles a sample with ``jax.jit``, the port captures
 it into CUDA graphs and replays them. A sample is split as
 ``ops.integrator.SamplePlan`` splits it: one graph holds the prologue (the
 camera rays and the initial wavefront), one graph each bounce segment
 (compaction, the hit queries, shading, and ``alive.any()`` of the new
-state), and all of them share one memory pool. ``ops.integrator.drive``
-replays them in the eager loop's order: between two segments the host
-reads the flag back where the eager loop reads it, so the same segments
-run and ``skip_dead_segments`` keeps its meaning. The epilogue (the
+state), and all of them share one memory pool.
+``ops.integrator.run_segments`` replays them in the eager loop's order:
+between two segments the host reads the flag back where the eager loop
+reads it, so the same segments run and ``skip_dead_segments`` keeps its
+meaning. The epilogue (the
 scatters that undo compaction and the block pixel order) runs eagerly.
 The graphs hold the eager render's kernels and operators in its order, so
 a replay equals the eager render bit for bit.
 
-A captured fwd+bwd (``CompiledGrad``) is one graph: ``set_params`` of the
-entry's own leaves, the ``cfg.spp`` samples, the L2 loss and
-``torch.autograd.grad`` (``diff.loss.fwd_bwd``), with the autograd
+A captured fwd+bwd (``CompiledGrad``) is one graph of a program of
+``diff.loss``: ``set_params`` of the entry's own leaves, the samples, the
+loss and ``torch.autograd.grad``. ``GRADS`` captures ``fwd_bwd`` (the
+``cfg.spp`` samples and the L2 loss), ``FUSED`` ``fused_fwd_bwd`` (the
+same over a pixel shard, the squared error over the global element count)
+and ``VJPS`` ``sample_vjp`` (one sample, its index a graph input, and
+its VJP with a cotangent that is a graph input), with the autograd
 graph's backward (K3 and every index backward in it, and the recompute of
 ``remat_segments``) recorded at capture. A backward cannot be cut at the
 segments, so nothing is read back inside it: each sample runs as many
@@ -36,22 +46,31 @@ updates only after this read. The JAX package tests the same flag on the
 device (``lax.cond`` in its scan).
 
 Seed and sample index are 0-d device tensors of the graphs, written before
-each replay: a new seed or sample index replays the same graphs. A captured
-fwd+bwd also copies the caller's parameters and target into its own
-tensors before each replay.
+each replay: a new seed or sample index replays the same graphs. So is a
+pixel shard: a sample over the lanes ``pixel_idx`` copies them into its own
+tensor before each replay (``render_sharded`` builds a fresh shard at every
+call). A captured fwd+bwd also copies the caller's parameters and its
+program's inputs (target, shard, cotangent, sample index) into its own
+tensors before each replay. A caller that knows how many segments the
+samples need (the overlapped step, from its forward pass over the same
+samples) passes them as ``need``: a capture with fewer captures again
+before it would replay, so no replay is cut short and no flag need be read
+before the result is used.
 
 * **Key.** A sample's: the ``RenderConfig`` (its ``seed`` and ``spp``
-  aside: neither changes a sample's graphs), the lane count, the device,
-  and the identity of every scene and camera leaf (pointer, shape, dtype,
-  stride). A fwd+bwd's: the ``RenderConfig`` but its ``seed``, the
-  parameters' names, shapes and dtypes, the target's shape and dtype, the
-  device, whether deterministic algorithms are on (an index backward is
-  recorded as the mode has it), and the identity of every scene and camera
-  leaf that is not a parameter. Change a scene with
+  aside: neither changes a sample's graphs), the lane count (the image's,
+  or a shard's length, dtype and device: never its pointer or values), the
+  device, and the identity of every scene and camera leaf (pointer, shape,
+  dtype, stride). A fwd+bwd's: the program's name, the ``RenderConfig``
+  but its ``seed``, the parameters' names, shapes and dtypes, each input's
+  name, shape and dtype, the device, whether deterministic algorithms are
+  on (an index backward is recorded as the mode has it), and the
+  identity of every scene and camera leaf that is not a parameter.
+  Change a scene with
   ``dataclasses.replace``, never in place (the kernels' per-geometry
   preparations say the same).
 * **When a key captures.** Its first call runs eagerly on the current
-  stream, as ``render_sample`` or ``eager_loss_and_grad`` does, and only
+  stream, as ``render_sample`` or ``GradCache.eager`` does, and only
   notes the key: a one-shot render or gradient, or the first pass after an
   edit, costs what the eager one costs. The second call runs eagerly on a
   side stream (where every per-geometry preparation has already happened
@@ -69,9 +88,9 @@ tensors before each replay.
   is collected, the key and its graphs go, so a scene that its caller
   drops is freed, and a pointer of the key cannot come back as another
   scene's. What an entry made outside its capture and its graphs read (a
-  camera moved to the card, its own leaves, target and seed) it holds. At
+  camera moved to the card, its own leaves, inputs and seed) it holds. At
   most ``CACHE_SIZE`` keys are kept per cache; the least recently used one
-  goes first.
+  goes first; each of ``GRADS``, ``FUSED`` and ``VJPS`` keeps its own.
 * **Counting.** The kernel wrappers count at capture, where nothing
   launches: each graph keeps what they counted (``native.launches_during``),
   takes it back, and adds it at every replay. (``ops.hit
@@ -80,11 +99,12 @@ tensors before each replay.
 * **No fallback.** A capture or replay that fails raises; nothing carries
   on eagerly. While ``native.launch_records`` is open the compiled entries
   raise: a replay records no launch shapes (count ``render_sample`` or
-  ``eager_loss_and_grad``). Neither cache takes a CPU scene.
+  the eager programs). No cache takes a CPU scene.
 
-Nothing here runs on the CPU: ``ops.integrator`` calls in only for CUDA
-scenes that record no autograd graph, ``diff.loss.loss_and_grad`` only for
-CUDA scenes; the CPU runs every entry eagerly.
+Nothing here runs on the CPU: ``ops.integrator`` and ``parallel.render``
+call in only for CUDA scenes that record no autograd graph,
+``diff.loss.loss_and_grad`` and the train steps only for CUDA scenes; the
+CPU runs every entry eagerly.
 """
 
 from __future__ import annotations
@@ -98,10 +118,11 @@ import weakref
 
 import torch
 
-from ..diff.loss import fwd_bwd
+from ..diff.loss import fused_fwd_bwd, fwd_bwd, sample_vjp
 from ..diff.params import set_params
 from ..kernels import native
-from ..ops.integrator import SamplePlan, _records_graph, drive, unscatter
+from ..ops.integrator import (SamplePlan, _records_graph, run_segments,
+                              unscatter)
 
 CACHE_SIZE = 8
 
@@ -134,9 +155,11 @@ def _identity(x):
     return x
 
 
-def sample_key(scene, camera, cfg) -> tuple:
+def sample_key(scene, camera, cfg, pixel_idx=None) -> tuple:
     """What a captured sample depends on (module docstring, "Key")."""
-    return (cfg.replace(seed=0, spp=1), cfg.width * cfg.height, scene.device,
+    lanes = (cfg.width * cfg.height if pixel_idx is None else
+             ("shard", pixel_idx.shape[0], pixel_idx.dtype, pixel_idx.device))
+    return (cfg.replace(seed=0, spp=1), lanes, scene.device,
             tuple(_identity(x) for x in _leaves(scene)),
             tuple(_identity(x) for x in _leaves(camera)))
 
@@ -148,15 +171,53 @@ def _marked(params, scene, camera):
     return set_params(scene, camera, dict.fromkeys(params, "param"))
 
 
-def grad_key(params, scene, camera, cfg, target) -> tuple:
-    """What a captured fwd+bwd depends on (module docstring, "Key")."""
+def _spec(x):
+    """An input's part of a key: a tensor's shape and dtype; an int is
+    written into a 0-d tensor and has none."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    return "int"
+
+
+def program_key(program, params, scene, camera, cfg, inputs) -> tuple:
+    """What a captured fwd+bwd of ``program`` (a name of ``PROGRAMS``)
+    depends on, ``inputs`` being its inputs by name (module docstring,
+    "Key")."""
     s, c = _marked(params, scene, camera)
-    return (cfg.replace(seed=0), scene.device,
+    return (program, cfg.replace(seed=0), scene.device,
             torch.are_deterministic_algorithms_enabled(),
             tuple((k, tuple(v.shape), v.dtype) for k, v in params.items()),
-            (tuple(target.shape), target.dtype),
+            tuple((k, _spec(v)) for k, v in sorted(inputs.items())),
             tuple(_identity(x) for x in _leaves(s)),
             tuple(_identity(x) for x in _leaves(c)))
+
+
+def grad_key(params, scene, camera, cfg, target) -> tuple:
+    """The key of ``grad_render``'s captured fwd+bwd."""
+    return program_key("loss", params, scene, camera, cfg, {"target": target})
+
+
+def _loss_program(leaves, scene, camera, cfg, seed, counts, target):
+    return fwd_bwd(leaves, scene, camera, cfg, target, seed, counts)
+
+
+def _fused_program(leaves, scene, camera, cfg, seed, counts, target,
+                   pixel_idx):
+    return fused_fwd_bwd(leaves, scene, camera, cfg, target, pixel_idx, seed,
+                         counts)
+
+
+def _vjp_program(leaves, scene, camera, cfg, seed, counts, cot, sample_idx,
+                 pixel_idx):
+    return sample_vjp(leaves, scene, camera, cfg, cot, sample_idx, pixel_idx,
+                      seed, counts)
+
+
+# The programs a ``GradCache`` captures, by name: each is called as
+# ``program(leaves, scene, camera, cfg, seed, counts, **inputs)`` and
+# returns (value or None, grads, segments run per sample, tail flags).
+PROGRAMS = {"loss": _loss_program, "fused": _fused_program,
+            "vjp": _vjp_program}
 
 
 def _set(static, value):
@@ -198,16 +259,21 @@ def _follow(entry):
 
 class CompiledSample:
     """The graphs of one key: ``prologue``, ``segment`` and ``epilogue``
-    as ``SamplePlan`` has them, each graph call a replay, for ``drive``."""
+    as ``SamplePlan`` has them, each graph call a replay, for
+    ``run_segments``. With ``pixel_idx`` the lanes are a shard of that
+    length, copied into the entry's own tensor before each run."""
 
-    def __init__(self, scene, camera, cfg):
+    def __init__(self, scene, camera, cfg, pixel_idx=None):
         dev = scene.device
         self.device = dev
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
         self.sample_idx = torch.zeros((), dtype=torch.int64, device=dev)
-        # reads the two tensors above wherever the eager plan reads its ints;
-        # dropped after the capture, with its scene
-        self.plan = SamplePlan(scene, camera, cfg, self.sample_idx, self.seed)
+        self.shard = None if pixel_idx is None else torch.empty(
+            pixel_idx.shape, dtype=pixel_idx.dtype, device=dev)
+        # reads the tensors above wherever the eager plan reads its ints and
+        # lanes; dropped after the capture, with its scene
+        self.plan = SamplePlan(scene, camera, cfg, self.sample_idx, self.seed,
+                               self.shard)
         self.n_segments = self.plan.n_segments
         # what the graphs and the epilogue read of the plan, kept
         self.camera, self.pixel_idx = self.plan.camera, self.plan.pixel_idx
@@ -221,15 +287,21 @@ class CompiledSample:
         self.capture_s = None
         self._last_stream = None
 
-    def first(self, seed, sample_idx):
-        """The eager warm-up on the side stream, then the capture. Returns
-        the warm-up's radiance, for the current stream."""
-        cur = torch.cuda.current_stream(self.device)
+    def _load(self, seed, sample_idx, pixel_idx):
         _set(self.seed, seed)
         _set(self.sample_idx, sample_idx)
+        if self.shard is not None:
+            self.shard.copy_(pixel_idx)
+
+    def first(self, seed, sample_idx, pixel_idx=None):
+        """The eager warm-up on the side stream, then the capture. Returns
+        the warm-up's (radiance, segments run), the radiance for the
+        current stream."""
+        cur = torch.cuda.current_stream(self.device)
+        self._load(seed, sample_idx, pixel_idx)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            radiance = drive(self.plan)
+            radiance, run, _ = run_segments(self.plan)
         cur.wait_stream(self.stream)
         radiance.record_stream(cur)
         t0 = time.perf_counter()
@@ -241,7 +313,7 @@ class CompiledSample:
         self.capture_s = time.perf_counter() - t0
         self._last_stream = cur
         self.plan = None
-        return radiance
+        return radiance, run
 
     def _capture(self, body):
         graph, out, delta = _capture(self.stream, self.pool, body)
@@ -254,16 +326,16 @@ class CompiledSample:
         native.add_launches(self.launches[i])
         return self.outputs[i]
 
-    def replay(self, seed, sample_idx):
-        """The sample at (seed, sample_idx) by the captured graphs; the
-        radiance, for the current stream. It may be the pool's own buffer
-        (no epilogue): the caller consumes it before the next replay."""
+    def replay(self, seed, sample_idx, pixel_idx=None):
+        """The sample at (seed, sample_idx) over ``pixel_idx`` by the
+        captured graphs; (radiance, segments run), the radiance for the
+        current stream. It may be the pool's own buffer (no epilogue): the
+        caller consumes it before the next replay."""
         _follow(self)
-        _set(self.seed, seed)
-        _set(self.sample_idx, sample_idx)
-        return drive(self)
+        self._load(seed, sample_idx, pixel_idx)
+        return run_segments(self)[:2]
 
-    # ``drive``'s interface
+    # ``run_segments``' interface
     def prologue(self):
         return self._replay(0)
 
@@ -276,40 +348,45 @@ class CompiledSample:
 
 
 class CompiledGrad:
-    """The captured fwd+bwd of one key (module docstring): one graph over
-    the entry's own parameter leaves, target and seed word, each sample
-    running ``counts[k]`` segments."""
+    """The captured fwd+bwd of one key (module docstring): one graph of
+    ``program`` over the entry's own parameter leaves, inputs and seed
+    word, each sample running ``counts[k]`` segments."""
 
-    def __init__(self, params, target, device):
+    def __init__(self, program, params, inputs, device):
+        self.program = program
         self.device = device
         with torch.inference_mode(False):
             self.leaves = {k: torch.empty(v.shape, dtype=v.dtype,
                                           device=device).requires_grad_(True)
                            for k, v in params.items()}
-            self.target = torch.empty(target.shape, dtype=target.dtype,
-                                      device=device)
+            self.inputs = {
+                k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                if isinstance(v, torch.Tensor) else
+                torch.zeros((), dtype=torch.int64, device=device)
+                for k, v in inputs.items()}
             self.seed = torch.zeros((), dtype=torch.int64, device=device)
         self.stream = torch.cuda.Stream(device)
         self.counts = None   # segments per sample, as captured
         self.graph = None
         self.launches = {}   # {counter: launches per replay}
-        self.outputs = None  # the graph's (loss, grads, tail flag or None)
+        self.outputs = None  # the graph's (value, grads, tail flag or None)
         self.camera_held = []   # tensors made here that the graph reads
         self.capture_s = None
         self._last_stream = None
 
-    def _load(self, params, target, seed):
+    def _load(self, params, inputs, seed):
         with torch.no_grad():
             for k, leaf in self.leaves.items():
                 leaf.copy_(params[k])
-            self.target.copy_(target)
+            for k, buf in self.inputs.items():
+                _set(buf, inputs[k])
         _set(self.seed, seed)
 
-    def first(self, params, scene, camera, cfg, target, seed):
+    def first(self, params, scene, camera, cfg, inputs, seed, need=None):
         """The eager fwd+bwd on the side stream, then the capture, each
-        sample's segment count the larger of the warm-up's and the last
-        capture's. Returns the warm-up's (loss, grads), for the current
-        stream."""
+        sample's segment count the largest of the warm-up's, the last
+        capture's and ``need``'s. Returns the warm-up's (value, grads), for
+        the current stream."""
         cur = torch.cuda.current_stream(self.device)
         if self.graph is not None:   # a regrowth: the old graph goes first
             torch.cuda.synchronize(self.device)
@@ -322,41 +399,49 @@ class CompiledGrad:
                             if isinstance(x, torch.Tensor) and id(x) not in own]
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            self._load(params, target, seed)
-            loss, grads, runs, _ = fwd_bwd(self.leaves, scene, moved, cfg,
-                                           self.target, self.seed)
+            self._load(params, inputs, seed)
+            value, grads, runs, _ = self.program(
+                self.leaves, scene, moved, cfg, self.seed, None,
+                **self.inputs)
         cur.wait_stream(self.stream)
-        for x in (loss, *grads.values()):
-            x.record_stream(cur)
-        self.counts = runs if self.counts is None else [
-            max(a, b) for a, b in zip(runs, self.counts)]
+        for x in (value, *grads.values()):
+            if x is not None:
+                x.record_stream(cur)
+        self.counts = [max(c) for c in zip(
+            runs, self.counts or runs, need or runs)]
 
         def body():
-            out_loss, out_grads, _, tails = fwd_bwd(
-                self.leaves, scene, moved, cfg, self.target, self.seed,
-                self.counts)
+            out, out_grads, _, tails = self.program(
+                self.leaves, scene, moved, cfg, self.seed, self.counts,
+                **self.inputs)
             tails = [t for t in tails if t is not None]
-            return out_loss, out_grads, (torch.stack(tails).any() if tails
-                                         else None)
+            return out, out_grads, (torch.stack(tails).any() if tails
+                                    else None)
         t0 = time.perf_counter()
         self.graph, self.outputs, self.launches = _capture(
             self.stream, torch.cuda.graph_pool_handle(), body)
         self.capture_s = time.perf_counter() - t0
         self._last_stream = cur
-        return loss, grads
+        return value, grads
 
-    def replay(self, params, target, seed):
-        """(loss, grads) by the captured graph, fresh tensors for the
+    def replay(self, params, inputs, seed, defer=False):
+        """(value, grads) by the captured graph, fresh tensors for the
         current stream; None where a sample's last captured segment left a
-        lane alive (the caller captures again)."""
+        lane alive (the caller captures again). With ``defer`` no flag is
+        read: (value, grads, a fresh copy of the tail flag or None), for a
+        caller that reads the flags of several replays at once."""
         _follow(self)
-        self._load(params, target, seed)
+        self._load(params, inputs, seed)
         self.graph.replay()
         native.add_launches(self.launches)
-        loss, grads, tail = self.outputs
-        if tail is not None and bool(tail):
+        value, grads, tail = self.outputs
+        if not defer and tail is not None and bool(tail):
             return None
-        return loss.clone(), {k: g.clone() for k, g in grads.items()}
+        out = (None if value is None else value.clone(),
+               {k: g.clone() for k, g in grads.items()})
+        if defer:
+            return (*out, None if tail is None else tail.clone())
+        return out
 
 
 class _KeyedCache:
@@ -371,6 +456,7 @@ class _KeyedCache:
         self._watches = {}   # key -> the weakref.finalize of what it watches
         self._lock = threading.RLock()
         self.captures = 0   # captures so far
+        self.capture_s = 0.0   # and their seconds
 
     def __len__(self) -> int:
         """The keys that hold graphs."""
@@ -405,6 +491,7 @@ class _KeyedCache:
         self._entries[key] = entry
         self._entries.move_to_end(key)
         self.captures += 1
+        self.capture_s += entry.capture_s
         self._evict()
 
     def _evict(self):
@@ -428,96 +515,143 @@ class _KeyedCache:
 class SampleCache(_KeyedCache):
     """Captured samples by key (module docstring)."""
 
-    def entry(self, scene, camera, cfg):
+    def entry(self, scene, camera, cfg, pixel_idx=None):
         """The captured sample of this key, or None before its second
         call."""
-        return self._entries.get(sample_key(scene, camera, cfg))
+        return self._entries.get(sample_key(scene, camera, cfg, pixel_idx))
 
     def sample(self, scene, camera, cfg, sample_idx, seed=None,
-               consume=torch.clone):
+               consume=torch.clone, pixel_idx=None, runs=None):
         """``consume(radiance)`` of one sample, f32[N, 3]: eager at the
         first call of a key, eager then captured at the second, replayed
         after (module docstring). ``consume`` runs under the lock, before
         any other replay: the default hands back a fresh tensor, never the
         graphs' buffer. ``seed`` (default ``cfg.seed``) and ``sample_idx``
-        are ints or 0-d integer tensors."""
+        are ints or 0-d integer tensors. ``pixel_idx`` (default: the whole
+        image) are the lanes; a list ``runs`` gets the number of segments
+        the sample ran appended."""
         self._refuse(scene, "sample")
         if _records_graph(scene, camera):
             raise ValueError("a captured sample records no autograd graph: "
                              "render eagerly, or turn grad off")
         seed = cfg.seed if seed is None else seed
-        key = sample_key(scene, camera, cfg)
+        key = sample_key(scene, camera, cfg, pixel_idx)
         with self._lock, torch.cuda.device(scene.device), \
                 torch.inference_mode():
             if key not in self._entries:
-                radiance = drive(SamplePlan(scene, camera, cfg, sample_idx,
-                                            seed))
+                radiance, run, _ = run_segments(SamplePlan(
+                    scene, camera, cfg, sample_idx, seed, pixel_idx))
                 self._note(key, scene, camera)
             elif self._entries[key] is None:
-                entry = CompiledSample(scene, camera, cfg)
-                radiance = entry.first(seed, sample_idx)
+                entry = CompiledSample(scene, camera, cfg, pixel_idx)
+                radiance, run = entry.first(seed, sample_idx, pixel_idx)
                 self._captured(key, entry)
             else:
                 self._entries.move_to_end(key)
-                radiance = self._entries[key].replay(seed, sample_idx)
+                radiance, run = self._entries[key].replay(seed, sample_idx,
+                                                          pixel_idx)
+            if runs is not None:
+                runs.append(run)
             return consume(radiance)
 
     def accumulate(self, scene, camera, cfg, accum, sample_start,
-                   num_samples: int, seed=None):
-        """``ops.integrator.render_accumulate`` by the captured samples."""
+                   num_samples: int, seed=None, pixel_idx=None):
+        """``ops.integrator.render_accumulate`` by the captured samples,
+        over the lanes ``pixel_idx`` (default: the whole image)."""
         for k in range(num_samples):
             accum = self.sample(scene, camera, cfg, sample_start + k, seed,
-                                consume=accum.add)
+                                consume=accum.add, pixel_idx=pixel_idx)
         return accum
 
     def _note(self, key, scene, camera):
         self._watch(key, _watched(scene, camera))
 
 
+def _inputs(target):
+    """A program's inputs by name: ``target`` itself where it is a dict,
+    else the loss program's ``{"target": target}``."""
+    return target if isinstance(target, dict) else {"target": target}
+
+
 class GradCache(_KeyedCache):
-    """Captured fwd+bwd programs by key (module docstring)."""
+    """Captured fwd+bwd programs of one of ``PROGRAMS`` by key (module
+    docstring)."""
+
+    def __init__(self, program="loss"):
+        super().__init__()
+        self.name = program
+        self.program = PROGRAMS[program]
+        self.regrowths = 0   # captures again of a key, for more segments
 
     def entry(self, params, scene, camera, cfg, target):
         """The captured fwd+bwd of this key, or None before its second
-        call."""
-        return self._entries.get(grad_key(params, scene, camera, cfg,
-                                          target))
+        call. ``target``: the program's inputs by name, or the loss
+        program's target."""
+        return self._entries.get(program_key(self.name, params, scene,
+                                             camera, cfg, _inputs(target)))
+
+    def eager(self, params, scene, camera, cfg, inputs, seed=None):
+        """The program run eagerly, on any device: (value, grads), with
+        ``params`` taken as fresh leaves."""
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        return self.program(leaves, scene, camera, cfg,
+                            cfg.seed if seed is None else seed, None,
+                            **inputs)[:2]
 
     def loss_and_grad(self, params, scene, camera, cfg, target, seed=None):
-        """``diff.loss.loss_and_grad`` on a CUDA scene: (loss, grads),
-        fresh tensors, eager at the first call of a key, eager then
-        captured at the second, replayed after, captured again after a
-        replay whose tail flag is set (module docstring). ``seed``
-        (default ``cfg.seed``) is an int or a 0-d integer tensor."""
-        from ..diff.loss import eager_loss_and_grad
+        """``diff.loss.loss_and_grad`` on a CUDA scene (``GRADS``): ``run``
+        of the loss program's target."""
+        return self.run(params, scene, camera, cfg, {"target": target}, seed)
+
+    def run(self, params, scene, camera, cfg, inputs, seed=None, need=None,
+            defer=False):
+        """(value, grads) of the program on a CUDA scene, fresh tensors:
+        eager at the first call of a key, eager then captured at the
+        second, replayed after, captured again after a replay whose tail
+        flag is set, or before one where ``need`` (segments per sample)
+        asks for more than the capture runs (module docstring). ``seed``
+        (default ``cfg.seed``) is an int or a 0-d integer tensor. With
+        ``defer`` a replay reads no flag and (value, grads, tail flag or
+        None) comes back: the caller reads it before it uses the
+        result."""
         self._refuse(scene, "fwd+bwd")
         seed = cfg.seed if seed is None else seed
-        key = grad_key(params, scene, camera, cfg, target)
+        key = program_key(self.name, params, scene, camera, cfg, inputs)
+        tail = None
         with self._lock, torch.cuda.device(scene.device):
             entry = self._entries.get(key)
             if key not in self._entries:
-                out = eager_loss_and_grad(params, scene, camera, cfg, target,
-                                          seed)
+                out = self.eager(params, scene, camera, cfg, inputs, seed)
                 self._note(key, params, scene, camera)
             elif entry is None:
-                entry = CompiledGrad(params, target, scene.device)
-                out = entry.first(params, scene, camera, cfg, target, seed)
+                entry = CompiledGrad(self.program, params, inputs,
+                                     scene.device)
+                out = entry.first(params, scene, camera, cfg, inputs, seed,
+                                  need)
                 self._captured(key, entry)
             else:
                 self._entries.move_to_end(key)
-                out = entry.replay(params, target, seed)
+                out = None
+                if need is None or all(
+                        n <= c for n, c in zip(need, entry.counts)):
+                    out = entry.replay(params, inputs, seed, defer)
                 if out is None:
                     try:
-                        out = entry.first(params, scene, camera, cfg, target,
-                                          seed)
+                        out = entry.first(params, scene, camera, cfg, inputs,
+                                          seed, need)
                     except BaseException:
                         self._drop(key)   # no graph left to replay
                         raise
                     self.captures += 1
-            loss, grads = out
-            return loss, {k: g if g.device == params[k].device
-                          else g.to(params[k].device)
-                          for k, g in grads.items()}
+                    self.capture_s += entry.capture_s
+                    self.regrowths += 1
+                elif defer:
+                    *out, tail = out
+            value, grads = out
+            grads = {k: g if g.device == params[k].device
+                     else g.to(params[k].device) for k, g in grads.items()}
+            return (value, grads, tail) if defer else (value, grads)
 
     def _note(self, key, params, scene, camera):
         """Watch the nodes of the caller's scene and camera that are no
@@ -529,4 +663,6 @@ class GradCache(_KeyedCache):
 
 # The process's caches, used by the port's entry points.
 SAMPLES = SampleCache()
-GRADS = GradCache()
+GRADS = GradCache("loss")
+FUSED = GradCache("fused")
+VJPS = GradCache("vjp")

@@ -23,12 +23,37 @@ torch optimizer that the first call makes by ``optimizer(leaves)`` over the
 dict's tensors in sorted-key order (``step.optimizer``); ``optimizer`` is a
 factory such as ``functools.partial(torch.optim.Adam, lr=1e-2)``. The scene
 and camera are those the step was made with.
+
+Compiled entries: on a CUDA scene the JAX package's ``jax.jit`` programs
+become replays of CUDA graphs (``engine/compiled.py``), with every
+collective launched eagerly between them, on the current stream. A key's
+first call runs eagerly, its second captures, later ones replay; the
+result equals the eager program's bit for bit, with the same kernel
+launches and the same collectives.
+
+* ``render_local`` (so ``render_sharded`` and ``render_multihost``)
+  replays captured samples over the pixel shard (``SAMPLES``);
+* the fused step replays its fwd+bwd (``FUSED``: ``diff.loss
+  .fused_fwd_bwd``), reads its one tail flag, then all-reduces, updates
+  and clips eagerly;
+* the overlapped step's pass 1 replays captured samples over the shard,
+  and pass 2 one captured VJP per sample (``VJPS``: ``diff.loss
+  .sample_vjp``, the cotangent and the sample index graph inputs), each at
+  the segment count that pass 1 found the sample to need, so that no
+  replay is cut short; the all-reduce of sample k-1 stays in flight while
+  sample k replays. The tail flags of all its replays are read once,
+  after the last, before the update: a set one is a fault and raises.
+
+The eager programs stay callable by name on any device:
+``eager_render_local``, ``eager_render_sharded`` and ``step.eager``. The
+CPU runs them and nothing else; on the card nothing falls back to them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..diff.loss import fused_fwd_bwd, sample_vjp
 from ..diff.params import clip_params, set_params
 from ..ops.integrator import block_pixel_order, render_sample
 from ..ops.compaction import scatter_to_slots
@@ -57,10 +82,10 @@ def padded_pixels(n_pix: int, mesh: Mesh, base=None):
     return torch.cat([base, base.new_zeros(pad)])
 
 
-def render_local(scene, camera, cfg, pixel_idx, seed=None, sample_start=0):
-    """Mean radiance f32[n, 3] of the lanes ``pixel_idx`` over samples
-    ``sample_start .. sample_start + cfg.spp``: forward only, no
-    collective."""
+def eager_render_local(scene, camera, cfg, pixel_idx, seed=None,
+                       sample_start=0):
+    """``render_local`` run eagerly, on any device: a loop of
+    ``render_sample``."""
     with torch.inference_mode():
         acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
                           device=pixel_idx.device)
@@ -69,6 +94,23 @@ def render_local(scene, camera, cfg, pixel_idx, seed=None, sample_start=0):
                                       pixel_idx=pixel_idx, seed=seed)
         acc = acc / float(cfg.spp)
     # an inference tensor cannot be a collective's buffer or a loss's target
+    return acc.clone()
+
+
+def render_local(scene, camera, cfg, pixel_idx, seed=None, sample_start=0):
+    """Mean radiance f32[n, 3] of the lanes ``pixel_idx`` over samples
+    ``sample_start .. sample_start + cfg.spp``: forward only, no
+    collective, a fresh tensor. On a CUDA scene by the captured samples
+    over the shard, elsewhere ``eager_render_local``."""
+    if scene.device.type != "cuda":
+        return eager_render_local(scene, camera, cfg, pixel_idx, seed,
+                                  sample_start)
+    from ..engine.compiled import SAMPLES
+    with torch.inference_mode():
+        acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
+                          device=pixel_idx.device)
+        acc = SAMPLES.accumulate(scene, camera, cfg, acc, sample_start,
+                                 cfg.spp, seed, pixel_idx) / float(cfg.spp)
     return acc.clone()
 
 
@@ -81,6 +123,20 @@ def render_sharded(scene: Scene, camera: Camera, cfg, mesh=None, seed=None,
     high-spp render can be made in chunks and averaged: the keyed RNG makes
     chunked accumulation equal to one pass.
     """
+    return _render_sharded(render_local, scene, camera, cfg, mesh, seed,
+                           sample_start)
+
+
+def eager_render_sharded(scene: Scene, camera: Camera, cfg, mesh=None,
+                         seed=None, sample_start: int = 0):
+    """``render_sharded`` by ``eager_render_local``: the same collective
+    and result, the samples run eagerly."""
+    return _render_sharded(eager_render_local, scene, camera, cfg, mesh, seed,
+                           sample_start)
+
+
+def _render_sharded(local_render, scene, camera, cfg, mesh, seed,
+                    sample_start):
     mesh = mesh_for(scene, mesh)
     n_pix = cfg.width * cfg.height
     base = None
@@ -88,7 +144,7 @@ def render_sharded(scene: Scene, camera: Camera, cfg, mesh=None, seed=None,
         base = torch.from_numpy(
             block_pixel_order(cfg.width, cfg.height)).to(mesh.device)
     shard = local_shard(padded_pixels(n_pix, mesh, base), mesh)
-    local = render_local(scene, camera, cfg, shard, seed, sample_start)
+    local = local_render(scene, camera, cfg, shard, seed, sample_start)
     img = all_gather_rows(local, mesh)[:n_pix]
     if base is not None:
         img = scatter_to_slots(img, base)
@@ -97,7 +153,8 @@ def render_sharded(scene: Scene, camera: Camera, cfg, mesh=None, seed=None,
 
 class _TrainStep:
     """What the two steps share: the leaves, the optimizer made at the first
-    call, the update after the reduce."""
+    call, the update after the reduce, and the choice between the compiled
+    step (a CUDA scene) and ``eager``."""
 
     def __init__(self, scene, camera, cfg, optimizer, mesh):
         mesh = mesh_for(scene, mesh)
@@ -110,6 +167,7 @@ class _TrainStep:
         self.make_optimizer = optimizer
         self.optimizer = None
         self._leaves = None
+        self._posed = None   # (scene, camera) with the leaves in place
 
     def leaves(self, params: dict):
         """The dict's tensors in sorted-key order, marked as requiring grad;
@@ -120,11 +178,20 @@ class _TrainStep:
                 p.requires_grad_(True)
             self.optimizer = self.make_optimizer(leaves)
             self._leaves = leaves
+            self._posed = set_params(self.scene, self.camera,
+                                     _by_key(params, leaves))
         elif len(leaves) != len(self._leaves) or any(
                 a is not b for a, b in zip(leaves, self._leaves)):
             raise ValueError("the step updates in place the tensors it was "
                              "first called with; pass the same dict")
         return leaves
+
+    def __call__(self, params, pixel_idx, target_flat, seed):
+        """The step (module docstring): compiled on a CUDA scene, else
+        ``eager``."""
+        if self.scene.device.type != "cuda":
+            return self.eager(params, pixel_idx, target_flat, seed)
+        return self.compiled(params, pixel_idx, target_flat, seed)
 
     def sample(self, params, pixel_idx, k, seed):
         scene, camera = set_params(self.scene, self.camera, params)
@@ -144,26 +211,34 @@ class _TrainStep:
                 params[k].copy_(v)
 
 
-def _dense(grads, leaves):
-    return [torch.zeros_like(p) if g is None else g
-            for g, p in zip(grads, leaves)]
+def _by_key(params, leaves):
+    return dict(zip(sorted(params), leaves))
 
 
 class _FusedStep(_TrainStep):
-    def __call__(self, params, pixel_idx, target_flat, seed):
+    def eager(self, params, pixel_idx, target_flat, seed):
+        """The step with its fwd+bwd run eagerly, on any device."""
         leaves = self.leaves(params)
-        with torch.enable_grad():
-            acc = torch.zeros_like(target_flat)
-            for k in range(self.cfg.spp):
-                acc = acc + self.sample(params, pixel_idx, k, seed)
-            img = acc / float(self.cfg.spp)
-            # this shard's part of the global mean: its squared error over
-            # the global element count, so that the sum over ranks of it,
-            # and of its gradients, is the mean loss and its gradients
-            sq = torch.sum((img - target_flat) ** 2) / self.n_elems
-            grads = _dense(torch.autograd.grad(sq, leaves, allow_unused=True),
-                           leaves)
-        loss = sq.detach().clone()
+        loss, grads, _, _ = fused_fwd_bwd(
+            _by_key(params, leaves), self.scene, self.camera, self.cfg,
+            target_flat, pixel_idx, seed)
+        return self._reduce_and_update(params, leaves, loss, grads)
+
+    def compiled(self, params, pixel_idx, target_flat, seed):
+        """The step with its fwd+bwd replayed (``engine.compiled.FUSED``),
+        its tail flag read before the collective."""
+        from ..engine.compiled import FUSED
+        leaves = self.leaves(params)
+        loss, grads = FUSED.run(
+            _by_key(params, leaves), self.scene, self.camera, self.cfg,
+            {"target": target_flat, "pixel_idx": pixel_idx}, seed)
+        return self._reduce_and_update(params, leaves, loss, grads)
+
+    def _reduce_and_update(self, params, leaves, loss, grads):
+        # this shard's part of the global mean (``fused_fwd_bwd``): the sum
+        # over the ranks of it, and of its gradients, is the mean loss and
+        # its gradients
+        grads = [grads[k] for k in sorted(params)]
         all_reduce_flat([loss, *grads], self.mesh)
         self.update(params, leaves, grads)
         return loss
@@ -174,14 +249,59 @@ class _OverlappedStep(_TrainStep):
     # starts: the same sums with nothing hidden, to measure the overlap by.
     async_op = True
 
-    def __call__(self, params, pixel_idx, target_flat, seed):
-        cfg, spp = self.cfg, self.cfg.spp
+    def eager(self, params, pixel_idx, target_flat, seed):
+        """The step with its samples and VJPs run eagerly, on any
+        device."""
         leaves = self.leaves(params)
+
+        def forward(acc, k):
+            return acc + self.sample(params, pixel_idx, k, seed)
+
+        def vjp(cot, k):
+            return sample_vjp(_by_key(params, leaves), self.scene,
+                              self.camera, self.cfg, cot, k, pixel_idx,
+                              seed)[1]
+        return self._step(params, leaves, target_flat, forward, vjp)
+
+    def compiled(self, params, pixel_idx, target_flat, seed):
+        """The step with its samples replayed (``engine.compiled.SAMPLES``
+        over the shard) and its VJPs too (``engine.compiled.VJPS``), each
+        VJP at the segments that its sample's forward ran; the VJPs' tail
+        flags read once, before the update."""
+        from ..engine.compiled import SAMPLES, VJPS
+        leaves = self.leaves(params)
+        scene, camera = self._posed
+        runs, tails = [], []
+
+        def forward(acc, k):
+            return SAMPLES.sample(scene, camera, self.cfg, k, seed,
+                                  consume=acc.add, pixel_idx=pixel_idx,
+                                  runs=runs)
+
+        def vjp(cot, k):
+            _, g, tail = VJPS.run(
+                _by_key(params, leaves), self.scene, self.camera, self.cfg,
+                {"cot": cot, "sample_idx": k, "pixel_idx": pixel_idx}, seed,
+                need=[max(runs)], defer=True)
+            if tail is not None:
+                tails.append(tail)
+            return g
+
+        def check():
+            if tails and bool(torch.stack(tails).any()):
+                raise RuntimeError(
+                    "a sample's VJP left a lane alive after the segments "
+                    "its forward ran: no update from a result cut short")
+        return self._step(params, leaves, target_flat, forward, vjp, check)
+
+    def _step(self, params, leaves, target_flat, forward, vjp,
+              check=lambda: None):
+        spp = self.cfg.spp
         # ---- pass 1: forward only, the mean image and the cotangent ----
         with torch.no_grad():
             acc = torch.zeros_like(target_flat)
             for k in range(spp):
-                acc = acc + self.sample(params, pixel_idx, k, seed)
+                acc = forward(acc, k)
             diff = acc / float(spp) - target_flat
             cot = diff * (2.0 / (self.n_elems * spp))
             loss = torch.sum(diff * diff)
@@ -198,16 +318,14 @@ class _OverlappedStep(_TrainStep):
                 t += g
         pending = None
         for k in range(spp):
-            with torch.enable_grad():
-                sample = self.sample(params, pixel_idx, k, seed)
-                g = _dense(torch.autograd.grad(sample, leaves,
-                                               grad_outputs=cot,
-                                               allow_unused=True), leaves)
+            g = vjp(cot, k)
+            g = [g[key] for key in sorted(params)]
             if pending is not None:
                 land(*pending)
             pending = (all_reduce_flat(g, self.mesh, async_op=self.async_op),
                        g)
         land(*pending)
+        check()
         self.update(params, leaves, total)
         return loss
 

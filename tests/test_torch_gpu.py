@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, and its
-compiled forward and fwd+bwd (``engine/compiled.py``) against the eager
-render and the eager fwd+bwd, on the card.
+compiled forward, fwd+bwd and sharded entries (``engine/compiled.py``)
+against the eager render, the eager fwd+bwd and the eager sharded
+programs, on the card.
 
 Every test here needs a CUDA card and skips without one. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -1092,3 +1093,125 @@ def test_a_failed_gradient_capture_raises(dev, monkeypatch):
     assert GRADS.captures == captures + 1
     with record_launches(), pytest.raises(RuntimeError):
         grad_render(scene, cam, cfg, target)   # a replay records no shapes
+
+
+# ---- the compiled sharded entries: replays with the collectives between ------
+
+def _sharded_steps(dev, make, cfg, async_op=None):
+    """(eager(seed), compiled(seed)) of one train step made twice from the
+    same start on the one-process mesh: each call returns the loss, the
+    gradients its update saw and the parameters after it."""
+    from chip_smoke import capture_sgd
+    from pbrpathtracer_tpu_torch import get_params
+    from pbrpathtracer_tpu_torch.parallel.mesh import (broadcast_params,
+                                                       make_mesh)
+    scene, cam = builders.cornell_box(), Camera.make(**POSE).to(dev)
+    mesh = make_mesh()
+    pix = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    target = torch.full((cfg.num_pixels, 3), 0.2, device=dev)
+
+    def way(eager):
+        params = broadcast_params(get_params(scene, cam), mesh)
+        step = make(scene, cam, cfg, capture_sgd(1e-2), mesh)
+        if async_op is not None:
+            step.async_op = async_op
+        call = step.eager if eager else step
+
+        def run(seed):
+            loss = call(params, pix, target, seed)
+            return [loss.clone(), *step.optimizer.seen,
+                    *(params[k].detach().clone() for k in sorted(params))]
+        return run
+    return way(True), way(False)
+
+
+def test_compiled_render_sharded_equals_eager(dev):
+    """``render_sharded`` replays captured samples over its shard, a fresh
+    shard tensor at every call under one key; the four shards of a world of
+    four replay one key with their own lanes."""
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.parallel.mesh import (Mesh, local_shard,
+                                                       make_mesh)
+    from pbrpathtracer_tpu_torch.parallel.render import (
+        eager_render_local, eager_render_sharded, render_local,
+        render_sharded)
+    for name in ("cornell", "mesh3k sort block"):
+        scene, cam, cfg = _compiled_case(name, dev)
+        mesh = make_mesh()
+        eager = eager_render_sharded(scene, cam, cfg, mesh=mesh)
+        assert torch.equal(eager, eager_render(scene, cam, cfg))
+        captures = SAMPLES.captures
+        for _ in range(3):
+            assert torch.equal(render_sharded(scene, cam, cfg, mesh=mesh),
+                               eager)
+        assert SAMPLES.captures == captures + 1
+        pix = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+        for r in range(4):
+            shard = local_shard(pix, Mesh(None, r, 4, dev))
+            assert torch.equal(render_local(scene, cam, cfg, shard),
+                               eager_render_local(scene, cam, cfg, shard))
+        assert SAMPLES.captures == captures + 2
+
+
+@pytest.mark.parametrize("kind", ["fused spp 1", "fused spp 2",
+                                  "overlapped async", "overlapped sync"])
+def test_compiled_steps_equal_the_eager_steps(dev, kind):
+    """The first call of a step's keys is eager, the second captures, later
+    ones replay; at each, and at a new seed, the loss, the gradients the
+    update saw and the parameters after it equal the eager step's bit for
+    bit, with the same launches and all-reduces."""
+    from pbrpathtracer_tpu_torch.engine.compiled import FUSED, SAMPLES, VJPS
+    from pbrpathtracer_tpu_torch.kernels import native
+    from pbrpathtracer_tpu_torch.parallel.mesh import all_reduce_flat
+    from pbrpathtracer_tpu_torch.parallel.render import (
+        make_train_step, make_train_step_overlapped)
+    over = kind.startswith("overlapped")
+    cfg = RenderConfig(width=32, height=32, max_depth=3,
+                       spp=1 if kind == "fused spp 1" else 2, seed=2)
+    eager, compiled = _sharded_steps(
+        dev, make_train_step_overlapped if over else make_train_step, cfg,
+        None if not over else kind.endswith("async"))
+    caches = (SAMPLES, FUSED, VJPS)
+    counted = {}
+    for i, seed in enumerate((0, 0, 0, 5)):
+        got = {}
+        for key, fn in (("eager", eager), ("compiled", compiled)):
+            before = {f: f.launches for f in native.COUNTED}
+            all_reduce_flat.calls = 0
+            got[key] = fn(seed)
+            torch.cuda.synchronize()
+            counted[key] = ({f: f.launches - n for f, n in before.items()},
+                            all_reduce_flat.calls)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got["eager"], got["compiled"])), (i, seed)
+        if i == 1:
+            captures = sum(c.captures for c in caches)
+        if i >= 2:     # replays
+            assert counted["compiled"] == counted["eager"]
+    assert counted["eager"][1] == (cfg.spp + 1 if over else 1)
+    assert sum(c.captures for c in caches) == captures
+
+
+def test_a_failed_step_capture_raises(dev, monkeypatch):
+    """A host read-back inside a segment: the fused step's eager first call
+    takes it, its capture cannot; the step raises before its all-reduce
+    and update, and caches no graph."""
+    from pbrpathtracer_tpu_torch.engine.compiled import FUSED
+    from pbrpathtracer_tpu_torch.ops import integrator as pint
+    from pbrpathtracer_tpu_torch.parallel.mesh import all_reduce_flat
+    from pbrpathtracer_tpu_torch.parallel.render import make_train_step
+    cfg = RenderConfig(width=32, height=32, max_depth=2, spp=1, seed=2)
+    _, compiled = _sharded_steps(dev, make_train_step, cfg)
+    shade = pint.shade_segment
+
+    def reads_back(*args, **kwargs):
+        out = shade(*args, **kwargs)
+        float(out.radiance.sum())
+        return out
+    monkeypatch.setattr(pint, "shade_segment", reads_back)
+    compiled(0)                               # eager: the key noted
+    captures, calls, held = FUSED.captures, all_reduce_flat.calls, len(FUSED)
+    with pytest.raises(RuntimeError):
+        compiled(0)
+    assert FUSED.captures == captures and all_reduce_flat.calls == calls
+    assert len(FUSED) == held
