@@ -33,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import observability
 from .loss import loss_and_grad
 from .params import clip_params, get_params, set_params
 
@@ -113,11 +114,14 @@ def fit(scene, camera, cfg, target, *, steps=100, lr=2e-2,
                                     seed=seed)
         for k, p in params.items():
             p.grad = grads[k]
-        opt.step()
-        with torch.no_grad():
-            for k, v in clip_params(params).items():
-                params[k].copy_(v)
-        losses.append(float(loss.detach()))
+        with observability.span("pbr.update"):
+            opt.step()
+            with torch.no_grad():
+                for k, v in clip_params(params).items():
+                    params[k].copy_(v)
+        with observability.host_read("pbr.read.loss"):
+            losses.append(float(loss.detach()))
+        observability.call_done()
         if callback is not None:
             callback(s, losses[-1], params)
         if (checkpoint_path and checkpoint_every

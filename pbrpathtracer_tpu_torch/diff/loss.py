@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.integrator import SamplePlan, render, run_segments
+from ..utils import observability
 from .params import set_params
 
 
@@ -91,8 +92,9 @@ def fwd_bwd(leaves, scene, camera, cfg, target, seed=None, counts=None,
         s, c = set_params(scene, camera, leaves)
         loss, runs, tails = sampled_loss(s, c, cfg, target, seed, counts,
                                          pixel_idx, divisor)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        with observability.device_span("pbr.backward", loss.is_cuda):
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
     return loss.detach(), _dense(leaves, grads), runs, tails
 
 
@@ -121,8 +123,9 @@ def sample_vjp(leaves, scene, camera, cfg, cot, sample_idx, pixel_idx=None,
             SamplePlan(s, c, cfg, sample_idx, seed, pixel_idx,
                        cfg.resolved_remat()),
             None if counts is None else counts[0])
-        grads = torch.autograd.grad(radiance, list(leaves.values()),
-                                    grad_outputs=cot, allow_unused=True)
+        with observability.device_span("pbr.backward", radiance.is_cuda):
+            grads = torch.autograd.grad(radiance, list(leaves.values()),
+                                        grad_outputs=cot, allow_unused=True)
     return None, _dense(leaves, grads), [run], [tail]
 
 

@@ -96,6 +96,12 @@ before the result is used.
   takes it back, and adds it at every replay. (``ops.hit
   .autodiff_intersector.queries``, which counts queries in plain torch and
   no kernel, counts at eager runs only.)
+* **Tracing.** Each graph carries the timestamps of its device spans
+  (``utils/observability.py``: ``pbr.graph`` around it, the layers' spans
+  inside), one-thread kernel nodes that its executable keeps disabled
+  while tracing is off; the graph is kept (``keep_graph``) for that
+  switch. While tracing, a replay is counted and its spans are read at the
+  caller's sync point.
 * **No fallback.** A capture or replay that fails raises; nothing carries
   on eagerly. While ``native.launch_records`` is open the compiled entries
   raise: a replay records no launch shapes (count ``render_sample`` or
@@ -123,6 +129,7 @@ from ..diff.params import set_params
 from ..kernels import native
 from ..ops.integrator import (SamplePlan, _records_graph, run_segments,
                               unscatter)
+from ..utils import observability
 
 CACHE_SIZE = 8
 
@@ -229,14 +236,17 @@ def _set(static, value):
 
 
 def _capture(stream, pool, body):
-    """(graph, ``body()``, {counter: launches per replay}): ``body``
-    captured on ``stream`` into ``pool``. The counters are left as they
+    """(graph, ``body()``, {counter: launches per replay}, its device
+    spans): ``body`` captured on ``stream`` into ``pool``, with the
+    timestamps of its device spans (``observability.graph_spans``), which
+    its executable runs only while tracing. The counters are left as they
     were: nothing launched at capture."""
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.stream(stream):
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
-            out, delta = native.launches_during(body)
+            with observability.graph_spans() as spans:
+                out, delta = native.launches_during(body)
         except BaseException:
             try:
                 graph.capture_end()
@@ -244,8 +254,10 @@ def _capture(stream, pool, body):
                 pass   # the capture was invalidated by the error
             raise
         graph.capture_end()
+    graph.instantiate()
+    observability.instantiated(spans, graph.raw_cuda_graph_exec())
     native.add_launches(delta, -1)
-    return graph, out, delta
+    return graph, out, delta, spans
 
 
 def _follow(entry):
@@ -284,14 +296,16 @@ class CompiledSample:
         self.graphs = []     # prologue, then one per segment
         self.launches = []   # per graph: {counter: launches per replay}
         self.outputs = []    # per graph: its (state, slot, flag)
+        self.spans = []      # per graph: its device spans
         self.capture_s = None
         self._last_stream = None
 
     def _load(self, seed, sample_idx, pixel_idx):
-        _set(self.seed, seed)
-        _set(self.sample_idx, sample_idx)
-        if self.shard is not None:
-            self.shard.copy_(pixel_idx)
+        with observability.span("pbr.load"):
+            _set(self.seed, seed)
+            _set(self.sample_idx, sample_idx)
+            if self.shard is not None:
+                self.shard.copy_(pixel_idx)
 
     def first(self, seed, sample_idx, pixel_idx=None):
         """The eager warm-up on the side stream, then the capture. Returns
@@ -316,13 +330,17 @@ class CompiledSample:
         return radiance, run
 
     def _capture(self, body):
-        graph, out, delta = _capture(self.stream, self.pool, body)
+        graph, out, delta, spans = _capture(self.stream, self.pool, body)
         self.graphs.append(graph)
         self.launches.append(delta)
         self.outputs.append(out)
+        self.spans.append(spans)
 
     def _replay(self, i):
-        self.graphs[i].replay()
+        observability.replaying(self.spans[i])
+        with observability.span("pbr.replay.segment" if i else
+                                "pbr.replay.prologue"):
+            self.graphs[i].replay()
         native.add_launches(self.launches[i])
         return self.outputs[i]
 
@@ -370,17 +388,18 @@ class CompiledGrad:
         self.graph = None
         self.launches = {}   # {counter: launches per replay}
         self.outputs = None  # the graph's (value, grads, tail flag or None)
+        self.spans = None    # the graph's device spans
         self.camera_held = []   # tensors made here that the graph reads
         self.capture_s = None
         self._last_stream = None
 
     def _load(self, params, inputs, seed):
-        with torch.no_grad():
+        with observability.span("pbr.load"), torch.no_grad():
             for k, leaf in self.leaves.items():
                 leaf.copy_(params[k])
             for k, buf in self.inputs.items():
                 _set(buf, inputs[k])
-        _set(self.seed, seed)
+            _set(self.seed, seed)
 
     def first(self, params, scene, camera, cfg, inputs, seed, need=None):
         """The eager fwd+bwd on the side stream, then the capture, each
@@ -418,7 +437,7 @@ class CompiledGrad:
             return out, out_grads, (torch.stack(tails).any() if tails
                                     else None)
         t0 = time.perf_counter()
-        self.graph, self.outputs, self.launches = _capture(
+        self.graph, self.outputs, self.launches, self.spans = _capture(
             self.stream, torch.cuda.graph_pool_handle(), body)
         self.capture_s = time.perf_counter() - t0
         self._last_stream = cur
@@ -432,15 +451,20 @@ class CompiledGrad:
         caller that reads the flags of several replays at once."""
         _follow(self)
         self._load(params, inputs, seed)
-        self.graph.replay()
-        native.add_launches(self.launches)
         value, grads, tail = self.outputs
-        if not defer and tail is not None and bool(tail):
-            return None
-        out = (None if value is None else value.clone(),
-               {k: g.clone() for k, g in grads.items()})
+        observability.replaying(self.spans)
+        with observability.span("pbr.replay.fwdbwd"):
+            self.graph.replay()
+            out = (None if value is None else value.clone(),
+                   {k: g.clone() for k, g in grads.items()})
+        native.add_launches(self.launches)
         if defer:
             return (*out, None if tail is None else tail.clone())
+        if tail is not None:
+            with observability.host_read("pbr.read.tail"):
+                cut = bool(tail)
+            if cut:
+                return None
         return out
 
 
@@ -539,12 +563,14 @@ class SampleCache(_KeyedCache):
         with self._lock, torch.cuda.device(scene.device), \
                 torch.inference_mode():
             if key not in self._entries:
-                radiance, run, _ = run_segments(SamplePlan(
-                    scene, camera, cfg, sample_idx, seed, pixel_idx))
+                with observability.span("pbr.eager"):
+                    radiance, run, _ = run_segments(SamplePlan(
+                        scene, camera, cfg, sample_idx, seed, pixel_idx))
                 self._note(key, scene, camera)
             elif self._entries[key] is None:
                 entry = CompiledSample(scene, camera, cfg, pixel_idx)
-                radiance, run = entry.first(seed, sample_idx, pixel_idx)
+                with observability.span("pbr.capture"):
+                    radiance, run = entry.first(seed, sample_idx, pixel_idx)
                 self._captured(key, entry)
             else:
                 self._entries.move_to_end(key)
@@ -552,7 +578,8 @@ class SampleCache(_KeyedCache):
                                                           pixel_idx)
             if runs is not None:
                 runs.append(run)
-            return consume(radiance)
+            with observability.span("pbr.epilogue"):
+                return consume(radiance)
 
     def accumulate(self, scene, camera, cfg, accum, sample_start,
                    num_samples: int, seed=None, pixel_idx=None):
@@ -622,13 +649,16 @@ class GradCache(_KeyedCache):
         with self._lock, torch.cuda.device(scene.device):
             entry = self._entries.get(key)
             if key not in self._entries:
-                out = self.eager(params, scene, camera, cfg, inputs, seed)
+                with observability.span("pbr.eager"):
+                    out = self.eager(params, scene, camera, cfg, inputs,
+                                     seed)
                 self._note(key, params, scene, camera)
             elif entry is None:
                 entry = CompiledGrad(self.program, params, inputs,
                                      scene.device)
-                out = entry.first(params, scene, camera, cfg, inputs, seed,
-                                  need)
+                with observability.span("pbr.capture"):
+                    out = entry.first(params, scene, camera, cfg, inputs,
+                                      seed, need)
                 self._captured(key, entry)
             else:
                 self._entries.move_to_end(key)
@@ -638,8 +668,9 @@ class GradCache(_KeyedCache):
                     out = entry.replay(params, inputs, seed, defer)
                 if out is None:
                     try:
-                        out = entry.first(params, scene, camera, cfg, inputs,
-                                          seed, need)
+                        with observability.span("pbr.capture"):
+                            out = entry.first(params, scene, camera, cfg,
+                                              inputs, seed, need)
                     except BaseException:
                         self._drop(key)   # no graph left to replay
                         raise

@@ -39,6 +39,7 @@ import torch
 
 from ..ops.integrator import render_accumulate, tonemap_u8
 from ..scene.editor import EditorScene
+from ..utils import observability
 from .config import DROPPED_FIELDS, RenderConfig
 
 
@@ -165,7 +166,10 @@ class RenderSession:
         if done and self.accum.is_cuda:
             # the passes are queued, not done: the clock of metrics() reads
             # finished work
-            torch.cuda.synchronize(self.accum.device)
+            with observability.host_read("pbr.sync.pass"):
+                torch.cuda.synchronize(self.accum.device)
+        if done:
+            observability.call_done(done)
         return done
 
     def run_async(self, passes_per_chunk: int = 1):

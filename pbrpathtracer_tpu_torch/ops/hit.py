@@ -36,6 +36,7 @@ from ..kernels.intersect import (MAX_DENSE_CHUNKS, classic_in_order,
                                  dense_chunks, intersect_dense)
 from ..kernels.intersect_list import intersect_list
 from ..scene.scene import Scene
+from ..utils import observability
 from ..utils.constants import NO_TEXTURE
 from . import rng
 from .intersect_vjp import with_custom_vjp
@@ -85,8 +86,16 @@ def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
     Shadow rays pass ``slot_base=SLOT_NEE_OPACITY_BASE`` and
     ``discrete=True``: their caller reads only ``hit`` and ``tri_idx``, so
     the query is stop-gradient'd whatever ``cfg.hit_vjp``. ``alive`` masks
-    dead lanes to a clean miss and lets the kernel skip them.
+    dead lanes to a clean miss and lets the kernel skip them. Its device
+    time is the ``pbr.hit`` span's.
     """
+    with observability.device_span("pbr.hit", ro.is_cuda):
+        return _query(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
+                      slot_base, intersect_fn, alive, discrete)
+
+
+def _query(scene, cfg, ro, rd, seed, pixel, sample_idx, stream, slot_base,
+           intersect_fn, alive, discrete):
     if cfg.opacity_attempts > rng.MAX_OPACITY_ATTEMPTS:
         raise ValueError("opacity_attempts: the draws are one 4-slot group")
     if slot_base % 4 != 0:

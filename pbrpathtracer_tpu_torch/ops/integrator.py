@@ -48,6 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..scene.scene import Camera, Scene
+from ..utils import observability
 from . import rng
 from .camera import generate_rays
 from .compaction import (coherence_key, compact_gather, compact_sort,
@@ -220,11 +221,12 @@ class SamplePlan:
 def unscatter(radiance, slot, order):
     """The epilogue's scatters: undo the compaction (``slot``, or None) and
     then the block pixel order (``order``, or None)."""
-    if slot is not None:
-        radiance = scatter_to_slots(radiance, slot)
-    if order is not None:
-        radiance = scatter_to_slots(radiance, order)
-    return radiance
+    with observability.span("pbr.epilogue"):
+        if slot is not None:
+            radiance = scatter_to_slots(radiance, slot)
+        if order is not None:
+            radiance = scatter_to_slots(radiance, order)
+        return radiance
 
 
 def drive(plan):
@@ -244,12 +246,19 @@ def run_segments(plan, count=None):
     gradient, so running past the live segments changes nothing. The tail
     flag is the device flag after the last segment run, where the eager
     loop would test again (None where it would not): true means that
-    ``count`` cut live lanes short."""
+    ``count`` cut live lanes short. At a fixed count, the flag that each
+    segment enters with is noted for a graph being captured
+    (``observability.segment_entered``: its dead segments)."""
     state, slot, flag = plan.prologue()
     run = 0
     for seg in range(plan.n_segments if count is None else count):
-        if count is None and flag is not None and not bool(flag):
-            break
+        if count is not None:
+            observability.segment_entered(flag)
+        elif flag is not None:
+            with observability.host_read("pbr.read.flag"):
+                live = bool(flag)
+            if not live:
+                break
         state, slot, flag = plan.segment(seg, state, slot)
         run += 1
     return plan.epilogue(state, slot), run, flag
@@ -288,8 +297,10 @@ def render_accumulate(scene: Scene, camera: Camera, cfg, accum,
                                   num_samples, seed)
     with _grad_mode(scene, camera):
         for k in range(num_samples):
-            accum = accum + render_sample(scene, camera, cfg,
-                                          sample_start + k, seed=seed)
+            radiance = render_sample(scene, camera, cfg, sample_start + k,
+                                     seed=seed)
+            with observability.span("pbr.epilogue"):
+                accum = accum + radiance
     return accum
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..scene.scene import Scene
+from ..utils import observability
 from ..utils.constants import (
     EPS, FLT_EPSILON, OPAQUE,
     TEX_DIFFUSE, TEX_NORMAL, TEX_EMISSIVE, TEX_ROUGHNESS, TEX_METALLIC,
@@ -212,7 +213,16 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
                   hit, tri_idx, t, bu, bv,
                   seg, sample_idx, seed, shadow_trace) -> WavefrontState:
     """Advance every lane by one bounce segment; returns the new state.
-    ``shadow_trace(p, l, alive)`` answers the NEE shadow query."""
+    ``shadow_trace(p, l, alive)`` answers the NEE shadow query. Its device
+    time, less the shadow queries, pack builds and fetches in it, is the
+    ``pbr.shade`` span's."""
+    with observability.device_span("pbr.shade", state.ro.is_cuda):
+        return _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
+                      sample_idx, seed, shadow_trace)
+
+
+def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
+           seed, shadow_trace):
     tex = scene.textures
     N = state.ro.shape[0]
     dev = state.ro.device

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.packgather import gather_rows_t_bwd, gather_rows_t_fwd
+from ..utils import observability
 from ..utils.constants import TEX_OPACITY
 
 
@@ -99,11 +100,13 @@ class _GatherFields(torch.autograd.Function):
 def gather_fields(table, idx, fields) -> tuple:
     """Per-lane attributes ``split(table[idx], fields)``: a slice field comes
     back as an [N, w] view, an int field as [N]. ``fields`` must be ordered,
-    disjoint and cover the table's columns (the backward concatenates)."""
+    disjoint and cover the table's columns (the backward concatenates).
+    Its forward's device time is the ``pbr.fetch`` span's."""
     plan = _plan_of(tuple(fields), table.shape[1])
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _GatherFields.apply(table, idx, plan)
-    return _split(gather_rows_t_fwd(table, idx), plan)
+    with observability.device_span("pbr.fetch", table.is_cuda):
+        if torch.is_grad_enabled() and table.requires_grad:
+            return _GatherFields.apply(table, idx, plan)
+        return _split(gather_rows_t_fwd(table, idx), plan)
 
 
 # ---- tri_pack column layout -------------------------------------------------
@@ -156,10 +159,16 @@ def _col(x):
 
 
 def build_tri_pack(scene) -> torch.Tensor:
-    """f32[T, 55] joined triangle + material shading table."""
+    """f32[T, 55] joined triangle + material shading table (the
+    ``pbr.pack`` span, as every pack build)."""
     g, m = scene.geom, scene.materials
     if g.num_triangles >= 2 ** 24 or m.num_materials >= 2 ** 24:
         raise ValueError("ids ride as float32 in the pack: need < 2**24")
+    with observability.device_span("pbr.pack", g.v0.is_cuda):
+        return _tri_pack(g, m)
+
+
+def _tri_pack(g, m):
     mid = g.mat_id.long()
     return torch.cat([
         g.normal, g.n0, g.n1, g.n2,
@@ -180,14 +189,17 @@ def build_light_pack(scene) -> torch.Tensor:
     g, m = scene.geom, scene.materials
     if g.num_triangles >= 2 ** 24:
         raise ValueError("light tri ids ride as float32: need < 2**24")
-    lt = scene.lights.long()
-    lmid = g.mat_id[lt].long()
-    lcolor = m.emissive[lmid] * m.emissive_intensity[lmid][:, None]
-    return torch.cat([g.v0[lt], g.e1[lt], g.e2[lt], lcolor, _col(lt)], dim=1)
+    with observability.device_span("pbr.pack", g.v0.is_cuda):
+        lt = scene.lights.long()
+        lmid = g.mat_id[lt].long()
+        lcolor = m.emissive[lmid] * m.emissive_intensity[lmid][:, None]
+        return torch.cat([g.v0[lt], g.e1[lt], g.e2[lt], lcolor, _col(lt)],
+                         dim=1)
 
 
 def build_uv_opacity_pack(scene) -> torch.Tensor:
     """f32[T, 7] = (uv0, uv1, uv2, opacity texture index)."""
     g, m = scene.geom, scene.materials
-    otex = m.tex_index[g.mat_id.long(), TEX_OPACITY]
-    return torch.cat([g.uv0, g.uv1, g.uv2, _col(otex)], dim=1)
+    with observability.device_span("pbr.pack", g.v0.is_cuda):
+        otex = m.tex_index[g.mat_id.long(), TEX_OPACITY]
+        return torch.cat([g.uv0, g.uv1, g.uv2, _col(otex)], dim=1)

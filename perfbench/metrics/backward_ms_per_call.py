@@ -1,0 +1,12 @@
+"""backward_ms_per_call: the device milliseconds of the program's
+``pbr.backward`` spans per call, exclusive of the spans nested in them:
+the fwd+bwd's backward (autograd.grad: the recompute of remat segments,
+K3, the index backwards). Read from the program's own record of the
+traced calls (timestamps that the program writes on the card around the
+span, captured into its graphs)."""
+
+from perfbench.harness import record
+
+
+def read(ctx):
+    return record.per_call("device_ms", "pbr.backward")

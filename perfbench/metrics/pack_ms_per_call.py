@@ -1,0 +1,12 @@
+"""pack_ms_per_call: the device milliseconds of the program's ``pbr.pack``
+spans per call, exclusive of the spans nested in them: the pack builds
+(the tri pack, the light pack and the uv-opacity pack, built every
+segment). Read from the program's own record of the traced calls
+(timestamps that the program writes on the card around the span,
+captured into its graphs)."""
+
+from perfbench.harness import record
+
+
+def read(ctx):
+    return record.per_call("device_ms", "pbr.pack")
