@@ -702,8 +702,9 @@ def fit_phase(cornell, camera):
 
 
 def texture_grad_phase(camera, dev):
-    """Texture gradients through the advanced-index read of ops/texture.py:
-    bit-identical across two calls with deterministic algorithms on."""
+    """Texture gradients through the texture read of ops/texture.py (K2
+    forward, K3 backward): bit-identical across two calls with deterministic
+    algorithms on (off, reported)."""
     import numpy as np
     import torch
     from pbrpathtracer_tpu_torch import RenderConfig, builders

@@ -23,16 +23,20 @@ backward concatenates the field cotangents into the [W, N] block cotangent
 kernel: autograd's own reverse of k views would build a zero [W, N] block
 per field and add them.
 
-The pack builders are plain torch, so autograd carries the block's
-cotangent on through the material join ``m.diffuse[mid]`` to the
-``Materials`` leaves.
+The pack builders are plain torch around one more pack-gather: the tri
+pack joins the material rows by ``mat_id`` with ``gather_rows_t`` from the
+f32[M, 21] ``material_table``, so autograd carries the block's cotangent
+through K3 and the table's ``cat`` to the ``Materials`` leaves. The light
+pack indexes its few rows with torch; the uv-opacity pack's material column
+is an integer field and carries no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.packgather import gather_rows_t_bwd, gather_rows_t_fwd
+from ..kernels.packgather import (gather_rows_t, gather_rows_t_bwd,
+                                  gather_rows_t_fwd)
 from ..utils import observability
 from ..utils.constants import TEX_OPACITY
 
@@ -168,17 +172,28 @@ def build_tri_pack(scene) -> torch.Tensor:
         return _tri_pack(g, m)
 
 
+def material_table(m) -> torch.Tensor:
+    """f32[M, 21]: the material fields in the tri pack's column order
+    (``DIFFUSE`` .. ``TEX_IDX``), one row per material."""
+    return torch.cat([
+        m.diffuse, m.specular, m.emissive,
+        _col(m.emissive_intensity), _col(m.roughness),
+        _col(m.reflectiveness), _col(m.translucency),
+        _col(m.ior), _col(m.mat_type),
+        m.tex_index.to(torch.float32),
+    ], dim=1)
+
+
 def _tri_pack(g, m):
-    mid = g.mat_id.long()
+    # The material join is one row gather by mat_id through the pack-gather
+    # pair: its backward is one K3 reduction onto the material table, which
+    # the cat's backward splits onto the leaves.
+    mat = gather_rows_t(material_table(m), g.mat_id).T
     return torch.cat([
         g.normal, g.n0, g.n1, g.n2,
         g.uv0, g.uv1, g.uv2,
         _col(g.smoothing),
-        m.diffuse[mid], m.specular[mid], m.emissive[mid],
-        _col(m.emissive_intensity[mid]), _col(m.roughness[mid]),
-        _col(m.reflectiveness[mid]), _col(m.translucency[mid]),
-        _col(m.ior[mid]), _col(m.mat_type[mid]),
-        m.tex_index[mid].to(torch.float32),
+        mat.contiguous(),
         g.tangent, g.bitangent,
         g.v0, g.e1, g.e2,
     ], dim=1)

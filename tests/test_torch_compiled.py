@@ -229,8 +229,12 @@ def test_launch_deltas_of_a_segment(name, counters):
              if fn.launches != n}
     assert delta == moved
     # one bounce query and one shadow query; one tri-pack and one
-    # light-pack fetch
-    assert {fn: delta[fn] for fn in counters} == {fn: 2 for fn in counters}
+    # light-pack fetch, the tri pack's material join and, on a textured
+    # scene, the five texture reads
+    query, gather = counters
+    reads = 5 if scene.has_any_texture else 0
+    assert {fn: delta[fn] for fn in counters} == {query: 2,
+                                                  gather: 3 + reads}
     assert set(delta) == set(counters)   # no kernel wrapper on the CPU
     after = {fn: fn.launches for fn in native.COUNTED}
     native.add_launches(delta, -1)      # what a capture does

@@ -1215,3 +1215,174 @@ def test_a_failed_step_capture_raises(dev, monkeypatch):
         compiled(0)
     assert FUSED.captures == captures and all_reduce_flat.calls == calls
     assert len(FUSED) == held
+
+
+# ---- the texture read and the material join through K2/K3 --------------------
+
+def _f64_sums(rows, cot, n_rows):
+    """f64 sums of the rows of ``cot`` [N, W] per id ``rows`` [N]; ids outside
+    [0, n_rows) dropped."""
+    ok = (rows >= 0) & (rows < n_rows)
+    return torch.zeros((n_rows, cot.shape[1]), dtype=torch.float64,
+                       device=cot.device).index_add_(
+        0, rows[ok].long(), cot[ok].double())
+
+
+@pytest.mark.parametrize("case", ["texture uniform", "texture one texel",
+                                  "materials 50k"])
+def test_texture_and_material_gradients_are_k3_sums(dev, case):
+    """The texture read's gradient w.r.t. the texels and the material join's
+    w.r.t. the material leaves are one K3 call each: within 1e-6 of an f64
+    sum per texel or material row, and the same bits on two calls. Ids
+    uniform over the 50k scene's two 64x64 textures (a third of the lanes
+    masked), every lane on one texel, and the 50k tri pack's 49,970
+    triangles onto its 3 materials."""
+    from pbrpathtracer_tpu_torch.diff.params import MATERIAL_FIELDS
+    from pbrpathtracer_tpu_torch.ops.shadepack import DIFFUSE, _tri_pack
+    from pbrpathtracer_tpu_torch.ops.texture import (sample_texture,
+                                                     texel_coords)
+    scene = mesh_scene(50_000)
+    rs = np.random.RandomState(len(case))
+    f32 = dict(dtype=torch.float32, device=dev)
+    if case.startswith("texture"):
+        tex = scene.textures
+        K, PH, PW, C = tex.data.shape
+        n = 262_144
+        idx = torch.tensor(rs.randint(-1, K, n), dtype=torch.int32,
+                           device=dev)
+        uv = torch.tensor(rs.uniform(-2, 2, (n, 2)), **f32)
+        if case == "texture one texel":
+            idx.fill_(1)
+            uv[:] = torch.tensor([0.3, 0.6], **f32)
+        mask = idx >= 0
+        cot = torch.tensor(rs.randn(n, C), **f32)
+        zeros = torch.zeros((n, C), **f32)
+
+        def grad():
+            data = tex.data.detach().clone().requires_grad_()
+            out = sample_texture(dataclasses.replace(tex, data=data), idx, uv,
+                                 zeros, mask)
+            return torch.autograd.grad((out * cot).sum(), data)[0] \
+                .reshape(-1, C)
+        safe = torch.where(mask, idx, 0)
+        x, y = texel_coords(tex, safe, uv)
+        ref = _f64_sums(torch.where(mask, (safe * PH + y) * PW + x, -1), cot,
+                        K * PH * PW)
+        if case == "texture one texel":
+            assert int(ref.any(dim=1).sum()) == 1
+    else:
+        m = scene.materials
+        cot = torch.tensor(rs.randn(scene.geom.num_triangles, 55), **f32)
+
+        def grad():
+            leaves = {f: getattr(m, f).detach().clone().requires_grad_()
+                      for f in MATERIAL_FIELDS}
+            pack = _tri_pack(scene.geom, dataclasses.replace(m, **leaves))
+            grads = torch.autograd.grad((pack * cot).sum(),
+                                        list(leaves.values()))
+            return torch.cat([g.reshape(len(g), -1) for g in grads], dim=1)
+        # the float material leaves are the table's first 14 columns
+        first = DIFFUSE.start
+        ref = _f64_sums(scene.geom.mat_id, cot[:, first:first + 14],
+                        m.num_materials)
+    before = KP.gather_rows_t_bwd.launches
+    a, b = grad(), grad()
+    torch.cuda.synchronize()
+    assert KP.gather_rows_t_bwd.launches == before + 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.double(), ref, rtol=1e-6, atol=1e-9)
+
+
+def _index_backwards(kernels):
+    """Launches of torch's indexing-backward kernels in a ``device_kernels``
+    reading."""
+    return sum(c for name, (c, _) in kernels.items()
+               if "indexing_backward" in name)
+
+
+def test_captured_textured_fwd_bwd_runs_no_index_backward(dev):
+    """A replay of the captured fwd+bwd of a textured scene on K4 launches
+    no torch indexing backward for its texture reads and material joins:
+    none at all when the textures alone are differentiated; with the
+    materials too, only the light pack's (it indexes its few rows with
+    torch), as many as one light-pack backward launches, per light-pack
+    fetch."""
+    from chip_smoke import device_kernels
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    from pbrpathtracer_tpu_torch.utils.roofline import record_launches
+    scene, cam, cfg = _compiled_case("mesh3k", dev)
+    cfg = cfg.replace(spp=1)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    counts = {}
+    for what, sel in (("textures", dict(materials=False, textures=True)),
+                      ("both", dict(materials=True, textures=True))):
+        grad_render(scene, cam, cfg, target, **sel)
+        grad_render(scene, cam, cfg, target, **sel)     # captured here
+        counts[what] = _index_backwards(device_kernels(
+            lambda: grad_render(scene, cam, cfg, target, **sel)))
+    assert counts["textures"] == 0
+
+    with record_launches() as records:
+        _eager_grad(scene, cam, cfg, target, materials=True, textures=True)
+    light_fetches = sum(1 for kernel, shapes in records
+                        if kernel == "gather_rows_t_bwd"
+                        and shapes["width"] == sp.LIGHT_PACK_WIDTH)
+    del records
+
+    def light_pack_backward():
+        m = scene.materials
+        em, ei = (x.detach().clone().requires_grad_()
+                  for x in (m.emissive, m.emissive_intensity))
+        pack = sp.build_light_pack(dataclasses.replace(
+            scene, materials=dataclasses.replace(
+                m, emissive=em, emissive_intensity=ei)))
+        torch.autograd.grad(pack.sum(), (em, ei))
+    per_fetch = _index_backwards(device_kernels(light_pack_backward))
+    assert light_fetches > 0 and per_fetch > 0
+    assert counts["both"] == light_fetches * per_fetch
+
+
+def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
+        dev, monkeypatch):
+    """``gather_rows_t_bwd.launches`` over one fwd+bwd of a textured scene,
+    eager and replayed: one per pack fetch (tri pack W = 55, light pack
+    W = 13), one per tri-pack build (its material join, W = 21) and one per
+    texture read whose value reaches the loss (W = 4; of the five reads a
+    segment, a read that feeds only the rays after the last segment gets no
+    gradient, so no backward)."""
+    from collections import Counter
+    from pbrpathtracer_tpu_torch.ops import shade
+    from pbrpathtracer_tpu_torch.utils.roofline import record_launches
+    scene, cam, cfg = _compiled_case("mesh3k", dev)
+    cfg = cfg.replace(spp=1)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    sel = dict(materials=True, textures=True)
+    reads, reached = [], []
+    sample_texture = shade.sample_texture
+
+    def watched(*args):
+        out = sample_texture(*args)
+        reads.append(out)
+        out.register_hook(lambda g: reached.append(len(reached)))
+        return out
+    monkeypatch.setattr(shade, "sample_texture", watched)
+    with record_launches() as records:
+        before = KP.gather_rows_t_bwd.launches
+        _eager_grad(scene, cam, cfg, target, **sel)
+        torch.cuda.synchronize()
+        eager = KP.gather_rows_t_bwd.launches - before
+    monkeypatch.undo()
+    widths = Counter(shapes["width"] for kernel, shapes in records
+                     if kernel == "gather_rows_t_bwd")
+    del records, reads
+    segments = widths[55]
+    assert segments > 0 and 3 * segments <= len(reached) <= 5 * segments
+    assert widths == {55: segments, 13: segments, 21: segments,
+                      4: len(reached)}
+    assert eager == sum(widths.values())
+    grad_render(scene, cam, cfg, target, **sel)
+    grad_render(scene, cam, cfg, target, **sel)       # captured here
+    before = KP.gather_rows_t_bwd.launches
+    grad_render(scene, cam, cfg, target, **sel)
+    torch.cuda.synchronize()
+    assert KP.gather_rows_t_bwd.launches - before == eager

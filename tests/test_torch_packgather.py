@@ -361,3 +361,73 @@ def test_backward_plain_on_skewed_ids(kind, T, W, N):
         assert not out.any()
     untouched = np.setdiff1d(np.arange(T), idx[ok])
     assert not out.numpy()[untouched].any()
+
+
+def _ten_gather_tri_pack(g, m):
+    """The tri pack as it was built before the material join went through
+    the pack-gather: ten torch gathers by ``mat_id``, one per material
+    field (a frozen copy; the oracle of the joined build)."""
+    mid = g.mat_id.long()
+
+    def col(x):
+        return x.to(torch.float32)[:, None]
+    return torch.cat([
+        g.normal, g.n0, g.n1, g.n2,
+        g.uv0, g.uv1, g.uv2,
+        col(g.smoothing),
+        m.diffuse[mid], m.specular[mid], m.emissive[mid],
+        col(m.emissive_intensity[mid]), col(m.roughness[mid]),
+        col(m.reflectiveness[mid]), col(m.translucency[mid]),
+        col(m.ior[mid]), col(m.mat_type[mid]),
+        m.tex_index[mid].to(torch.float32),
+        g.tangent, g.bitangent,
+        g.v0, g.e1, g.e2,
+    ], dim=1)
+
+
+def _pack_scene(name):
+    if name == "mesh3k":
+        from pbrpathtracer_tpu_torch.scene.big_scenes import mesh_scene
+        return mesh_scene(3000, device="cpu")
+    return from_reference(getattr(jb, name)())[0]
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_spheres_scene",
+                                  "translucent_scene", "mesh3k"])
+def test_tri_pack_from_the_material_table_equals_the_ten_gathers(name):
+    """The material join as one pack-gather from ``material_table`` gives
+    the ten-gather pack bit for bit, and, under one random cotangent, the
+    same gradient w.r.t. every material leaf (one plain K3 per build on
+    the CPU, each lane added in order as the index backwards add)."""
+    import dataclasses
+    from pbrpathtracer_tpu_torch.diff.params import MATERIAL_FIELDS
+    scene = _pack_scene(name)
+    cot = torch.tensor(np.random.RandomState(2).randn(
+        scene.geom.num_triangles, psp.TRI_PACK_WIDTH), dtype=torch.float32)
+    results = []
+    for build in (psp._tri_pack, _ten_gather_tri_pack):
+        leaves = {f: getattr(scene.materials, f).clone().requires_grad_()
+                  for f in MATERIAL_FIELDS}
+        m = dataclasses.replace(scene.materials, **leaves)
+        before = K.gather_rows_t_bwd_plain.launches
+        pack = build(scene.geom, m)
+        grads = torch.autograd.grad((pack * cot).sum(), list(leaves.values()))
+        results.append((pack, grads, K.gather_rows_t_bwd_plain.launches
+                        - before))
+    (pack, grads, k3), (ref_pack, ref_grads, ref_k3) = results
+    assert pack.shape == (scene.geom.num_triangles, psp.TRI_PACK_WIDTH)
+    assert torch.equal(pack, ref_pack)
+    assert torch.equal(pack, psp.build_tri_pack(scene))
+    for f, g, r in zip(MATERIAL_FIELDS, grads, ref_grads):
+        assert torch.equal(g, r), f
+    assert (k3, ref_k3) == (1, 0)
+
+
+def test_material_table_holds_the_pack_s_material_columns():
+    scene = from_reference(jb.cornell_box())[0]
+    table = psp.material_table(scene.materials)
+    first, last = psp.DIFFUSE.start, psp.TEX_IDX.stop
+    assert table.shape == (scene.materials.num_materials, last - first)
+    pack = psp.build_tri_pack(scene)
+    assert torch.equal(pack[:, first:last],
+                       table[scene.geom.mat_id.long()])

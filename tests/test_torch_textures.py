@@ -27,8 +27,10 @@ from pbrpathtracer_tpu.utils.constants import (TEX_DIFFUSE, TEX_EMISSIVE,
                                                TEX_OPACITY, TEX_ROUGHNESS)
 from pbrpathtracer_tpu_torch import RenderConfig, render
 from pbrpathtracer_tpu_torch import bridge
+from pbrpathtracer_tpu_torch.kernels import packgather as KP
 from pbrpathtracer_tpu_torch.ops.hit import interpolate_uv
-from pbrpathtracer_tpu_torch.ops.texture import sample_texture
+from pbrpathtracer_tpu_torch.ops.texture import sample_texture, texel_coords
+from pbrpathtracer_tpu_torch.scene.scene import Textures as PTextures
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -121,6 +123,78 @@ def test_sample_texture_matches_jax():
     out = sample_texture(ps.textures, torch.tensor(idx), torch.tensor(uv),
                          torch.tensor(fallback), torch.tensor(mask))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def _indexed_read(textures, tex_idx, uv, fallback, mask):
+    """The texture read as torch advanced indexing (``data[k, y, x]``), the
+    expression ``sample_texture`` had before it went through the
+    pack-gather: the oracle for its values and its gradient."""
+    safe_idx = torch.where(mask, tex_idx, 0)
+    x, y = texel_coords(textures, safe_idx, uv)
+    texel = textures.data[safe_idx.long(), y.long(), x.long()]
+    return torch.where(mask[:, None], texel, fallback)
+
+
+def _texture_case(case):
+    """(textures, tex_idx, uv, mask) of one case: three textures of
+    different sizes in one padded stack, so every case reads through the
+    padding's row stride."""
+    rs = np.random.RandomState(len(case))
+    sizes = [(5, 3), (8, 8), (2, 7)]              # (w, h)
+    data = np.zeros((3, 8, 8, 4), np.float32)
+    for k, (w, h) in enumerate(sizes):
+        data[k, :h, :w] = rs.uniform(0.1, 1.0, (h, w, 4))
+    textures = PTextures(data=torch.tensor(data),
+                         size=torch.tensor(sizes, dtype=torch.int32))
+    n = 3001
+    uv = rs.uniform(-2, 2, (n, 2)).astype(np.float32)
+    idx = rs.randint(0, 3, n).astype(np.int32)
+    mask = rs.uniform(size=n) < 0.8
+    if case == "all masked":
+        mask[:] = False
+    elif case == "none masked":
+        mask[:] = True
+    elif case == "wrap edges":
+        edges = np.array([0.0, 1.0, -1.0, 2.0, -1e-9, 1 - 1e-7, 0.5, -0.5],
+                         np.float32)
+        uv = edges[rs.randint(0, len(edges), (n, 2))]
+    elif case == "one texel":
+        idx[:] = 1
+        uv[:] = (0.3, 0.6)
+        mask[:] = True
+    return (textures, torch.tensor(idx), torch.tensor(uv),
+            torch.tensor(mask))
+
+
+@pytest.mark.parametrize("case", ["mixed sizes", "all masked", "none masked",
+                                  "wrap edges", "one texel"])
+def test_sample_texture_equals_the_indexed_read(case):
+    """Through the pack-gather (one row of the flattened stack per lane,
+    masked lanes out of range) the values equal the advanced-index read's
+    bit for bit, and so does the gradient w.r.t. the texels: both sum each
+    texel's lanes in lane order on the CPU. The backward is one plain K3
+    (``gather_rows_t_bwd_plain``) per read."""
+    textures, idx, uv, mask = _texture_case(case)
+    rs = np.random.RandomState(5)
+    fallback = torch.tensor(rs.uniform(size=(len(idx), 4)), dtype=torch.float32)
+    cot = torch.tensor(rs.randn(len(idx), 4), dtype=torch.float32)
+    results = []
+    for read in (sample_texture, _indexed_read):
+        data = textures.data.clone().requires_grad_()
+        tex = PTextures(data=data, size=textures.size)
+        before = KP.gather_rows_t_bwd_plain.launches
+        out = read(tex, idx, uv, fallback, mask)
+        (grad,) = torch.autograd.grad((out * cot).sum(), data)
+        results.append((out, grad, KP.gather_rows_t_bwd_plain.launches
+                        - before))
+    (out, grad, k3), (ref_out, ref_grad, _) = results
+    assert torch.equal(out, ref_out)
+    assert torch.equal(grad, ref_grad)
+    assert k3 == 1
+    if case == "all masked":
+        assert torch.equal(out, fallback) and not grad.any()
+    if case == "one texel":
+        assert grad.reshape(-1, 4).any(dim=1).sum() == 1
 
 
 def test_interpolate_uv_matches_jax():
