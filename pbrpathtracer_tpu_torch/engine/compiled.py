@@ -15,8 +15,9 @@ Where the JAX package compiles a sample with ``jax.jit``, the port captures
 it into CUDA graphs and replays them. A sample is split as
 ``ops.integrator.SamplePlan`` splits it: one graph holds the prologue (the
 camera rays and the initial wavefront), one graph each bounce segment
-(compaction, the hit queries, shading, and ``alive.any()`` of the new
-state), and all of them share one memory pool.
+(compaction, the hit queries, shading, and ``alive.sum()`` of the new
+state: the flag, a count of live lanes), and all of them share one memory
+pool.
 ``ops.integrator.run_segments`` replays them in the eager loop's order:
 between two segments the host reads the flag back where the eager loop
 reads it, so the same segments run and ``skip_dead_segments`` keeps its
@@ -90,7 +91,12 @@ before the result is used.
   scene's. What an entry made outside its capture and its graphs read (a
   camera moved to the card, its own leaves, inputs and seed) it holds. At
   most ``CACHE_SIZE`` keys are kept per cache; the least recently used one
-  goes first; each of ``GRADS``, ``FUSED`` and ``VJPS`` keeps its own.
+  goes first; each of ``GRADS``, ``FUSED`` and ``VJPS`` keeps its own. A
+  key's graphs keep their memory in a pool of their own, which the caching
+  allocator hands back only when its cache is emptied, and never while a
+  capture is under way: so a dropped key empties the cache, or a session
+  that restarts on edited scenes would fill the card with dead pools and
+  run out of memory in a capture.
 * **Counting.** The kernel wrappers count at capture, where nothing
   launches: each graph keeps what they counted (``native.launches_during``),
   takes it back, and adds it at every replay. (``ops.hit
@@ -243,9 +249,10 @@ def _capture(stream, pool, body):
     were: nothing launched at capture."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.stream(stream):
+        group = observability.graph_group()
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
-            with observability.graph_spans() as spans:
+            with observability.graph_spans(group) as spans:
                 out, delta = native.launches_during(body)
         except BaseException:
             try:
@@ -534,6 +541,8 @@ class _KeyedCache:
         if entry is not None:
             # no replay of it in flight when its graphs and pool go
             torch.cuda.synchronize(entry.device)
+            del entry
+            torch.cuda.empty_cache()   # its pool (module docstring, "Lifetime")
 
 
 class SampleCache(_KeyedCache):

@@ -10,10 +10,11 @@ undone at the end; a reordered render equals the scanline one bit for bit
 per pixel.
 
 The loop stops once every lane is dead (``skip_dead_segments``); that test
-reads one flag back from the device per segment. A sample is split where
-the compiled runner (``engine/compiled.py``) splits it, into a prologue
-(rays and the initial wavefront), one body per segment and an epilogue
-(the scatters): ``SamplePlan``, driven by ``drive``, or by
+reads one flag back from the device per segment: the count of live lanes,
+which tracing also counts (``observability.segment_run``). A sample is
+split where the compiled runner (``engine/compiled.py``) splits it, into a
+prologue (rays and the initial wavefront), one body per segment and an
+epilogue (the scatters): ``SamplePlan``, driven by ``drive``, or by
 ``run_segments`` with a fixed segment count, which reads nothing back (a
 captured fwd+bwd, whose backward cannot be cut at the segments).
 
@@ -167,11 +168,12 @@ class SamplePlan:
     * ``epilogue(state, slot)``: the scatters that undo compaction and the
       block pixel order; the radiance f32[N, 3].
 
-    The first two return (state, slot, flag): ``flag`` is ``alive.any()``
-    of the new state, on the device, which the next segment is tested on,
-    or None where no test follows (the last segment, or
-    ``skip_dead_segments`` off). ``drive`` runs the three in the eager
-    loop's order. ``seed`` and ``sample_idx`` are ints or 0-d tensors.
+    The first two return (state, slot, flag): ``flag`` is ``alive.sum()``
+    of the new state, the count of its live lanes on the device, which the
+    next segment is tested on, or None where no test follows (the last
+    segment, or ``skip_dead_segments`` off). ``drive`` runs the three in
+    the eager loop's order. ``seed`` and ``sample_idx`` are ints or 0-d
+    tensors.
     """
 
     def __init__(self, scene, camera, cfg, sample_idx, seed=None,
@@ -196,7 +198,7 @@ class SamplePlan:
 
     def _flag(self, state, next_seg):
         if self.cfg.skip_dead_segments and next_seg < self.n_segments:
-            return state.alive.any()
+            return state.alive.sum()
         return None
 
     def prologue(self):
@@ -245,21 +247,28 @@ def run_segments(plan, count=None):
     that are all dead returns its input state bit for bit, in value and in
     gradient, so running past the live segments changes nothing. The tail
     flag is the device flag after the last segment run, where the eager
-    loop would test again (None where it would not): true means that
+    loop would test again (None where it would not): non-zero means that
     ``count`` cut live lanes short. At a fixed count, the flag that each
     segment enters with is noted for a graph being captured
-    (``observability.segment_entered``: its dead segments)."""
+    (``observability.segment_entered``: its dead segments); with
+    ``count=None`` each segment run is noted with the live lanes it was
+    entered with (``observability.segment_run``)."""
     state, slot, flag = plan.prologue()
+    lanes = state.alive.shape[0]
     run = 0
     for seg in range(plan.n_segments if count is None else count):
         if count is not None:
             observability.segment_entered(flag)
-        elif flag is not None:
-            with observability.host_read("pbr.read.flag"):
-                live = bool(flag)
-            if not live:
-                break
-        state, slot, flag = plan.segment(seg, state, slot)
+            state, slot, flag = plan.segment(seg, state, slot)
+        else:
+            live = None
+            if flag is not None:
+                with observability.host_read("pbr.read.flag"):
+                    live = int(flag)
+                if not live:
+                    break
+            with observability.segment_run(live, lanes):
+                state, slot, flag = plan.segment(seg, state, slot)
         run += 1
     return plan.epilogue(state, slot), run, flag
 

@@ -43,7 +43,16 @@ a shared no-op context, and no counter moves.
   ``dead_segments`` (segments a captured fwd+bwd ran over lanes that were
   all dead, from the flags its graph keeps), ``captures`` and
   ``regrowths`` (the compiled caches' own counts over the record), and
-  ``calls`` (finished session passes and fit steps).
+  ``calls`` (finished session passes and fit steps). Of the segments that
+  ``run_segments`` runs while reading each flag (passes, eager samples;
+  not the captured fwd+bwd's): ``segments`` (segments run),
+  ``live_lanes`` (the lanes alive on entering each, from the count that
+  the flag read already brings) and ``segment_lanes`` (the lanes those
+  segments ran over, so ``live_lanes / segment_lanes`` is the occupancy).
+  The record's ``tail_ms`` sums, over the replays of segment graphs entered
+  with under ``TAIL_SHARE`` of their lanes alive, each graph's device time
+  from its first stamp to its last (``pbr.graph``'s, nested spans
+  included).
 
 A record starts at the first span after tracing turns on and gathers until
 it turns off; ``last_record()`` returns the newest.
@@ -172,7 +181,8 @@ def auto_resolution(base_width: int, base_height: int, aspect: float):
 # ---- tracing: the program's spans and counters (module docstring) ---------
 
 COUNTERS = ("graph_launches", "host_reads", "dead_segments", "captures",
-            "regrowths")
+            "regrowths", "segments", "live_lanes", "segment_lanes")
+TAIL_SHARE = 0.1   # a segment entered with fewer live lanes is in the tail
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
@@ -196,6 +206,7 @@ class _Record:
         self.device_ms = collections.defaultdict(float)
         self.host_ms = collections.defaultdict(float)
         self.graph_gap_ms = 0.0
+        self.tail_ms = 0.0
         self.caches_from = self.caches_to = _cache_counts()
 
     def as_dict(self) -> dict:
@@ -206,7 +217,8 @@ class _Record:
         return {"calls": self.calls, "counts": counts,
                 "device_ms": dict(self.device_ms),
                 "host_ms": dict(self.host_ms),
-                "graph_gap_ms": self.graph_gap_ms}
+                "graph_gap_ms": self.graph_gap_ms,
+                "tail_ms": self.tail_ms}
 
 
 def _cache_counts():
@@ -310,7 +322,7 @@ class _Group:
         """Write the card's nanosecond timer into the next slot, on the
         current stream; the slot's index."""
         i = self.slots
-        if i % STAMP_SLOTS == 0:
+        if i == STAMP_SLOTS * len(self.buffers):
             self.buffers.append(torch.empty(STAMP_SLOTS, dtype=torch.int64,
                                             device="cuda"))
         slot = self.buffers[-1][i % STAMP_SLOTS:]
@@ -390,7 +402,7 @@ class _DeviceSpan:
                 st.group = None
                 with _lock:
                     _begin()
-                    _pending.append((self._group, 0))
+                    _pending.append((self._group, 0, False))
         if self._host is not None:
             self._host.__exit__(*exc)
         return False
@@ -406,16 +418,30 @@ def device_span(name: str, cuda: bool):
     return _NULL
 
 
+def graph_group() -> _Group:
+    """A captured graph's group, made before ``capture_begin``, with its
+    first stamp buffer allocated there, outside the graph's memory pool.
+    Where several graphs share a pool (a sample's), a buffer allocated
+    while one is captured may lie in memory that an earlier graph uses for
+    its temporaries, and that graph's next replay would overwrite the
+    stamps before they are read. A sample's graph takes fewer than
+    ``STAMP_SLOTS`` stamps; a fwd+bwd's more, in a pool of its own."""
+    group = _Group(graph=True)
+    group.buffers.append(torch.empty(STAMP_SLOTS, dtype=torch.int64,
+                                     device="cuda"))
+    return group
+
+
 @contextlib.contextmanager
-def graph_spans():
-    """Open right after ``capture_begin``: collects the device spans of the
-    graph being captured, under ``pbr.graph`` (its first and last node), and
-    the flags that ``segment_entered`` notes, stacked into one graph output
-    before the last node. Yields the ``_Group`` that ``instantiated`` and
-    ``replaying`` take."""
+def graph_spans(group: _Group):
+    """Open right after ``capture_begin``, with the ``graph_group()`` made
+    before it: collects the device spans of the graph being captured, under
+    ``pbr.graph`` (its first and last node), and the flags that
+    ``segment_entered`` notes, stacked into one graph output before the
+    last node. Yields ``group``, which ``instantiated`` and ``replaying``
+    take."""
     st = _thread()
     outer = st.group, st.stack
-    group = _Group(graph=True)
     group.spans.append(["pbr.graph", -1, group.stamp(), None])
     st.group, st.stack = group, [0]
     try:
@@ -436,35 +462,64 @@ def instantiated(group, graph_exec: int):
 
 
 def segment_entered(flag):
-    """Note, inside a graph being captured, the flag (``alive.any()``) that
-    a segment run at a fixed count enters with: false means its lanes were
+    """Note, inside a graph being captured, the flag (the live-lane count)
+    that a segment run at a fixed count enters with: 0 means its lanes were
     all dead."""
     group = getattr(_local, "group", None)
     if flag is not None and group is not None and group.graph:
         group.flags.append(flag)
 
 
+def segment_run(live, lanes: int):
+    """Around one segment that ``run_segments`` runs, entered with ``live``
+    of its ``lanes`` alive (None where no flag was read): while tracing, the
+    segment and its lanes are counted, and a graph replayed inside is a
+    tail segment's where ``live`` is under ``TAIL_SHARE`` of ``lanes``. Off,
+    the shared no-op context."""
+    if not (_profiler._is_profiler_enabled or _forced):
+        return _NULL
+    with _lock:
+        counts = _begin().counts
+        counts["segments"] += 1
+        if live is not None:
+            counts["live_lanes"] += live
+            counts["segment_lanes"] += lanes
+    return _in_segment(live is not None and live < TAIL_SHARE * lanes)
+
+
+@contextlib.contextmanager
+def _in_segment(tail: bool):
+    _local.tail = tail
+    try:
+        yield
+    finally:
+        _local.tail = False
+
+
 def replaying(group):
     """Before a captured graph's replay: its stamps enabled while tracing,
     and disabled otherwise; while tracing the replay is counted and its
-    spans queued for ``settle()``."""
+    spans queued for ``settle()``, marked where it runs a tail segment
+    (``segment_run``)."""
     tracing_on = _profiler._is_profiler_enabled or _forced > 0
     if group.armed != tracing_on:
         _arm(group, tracing_on)
     if not tracing_on:
         return
+    tail = getattr(_local, "tail", False)
     with _lock:
         _begin().counts["graph_launches"] += 1
         group.replays += 1
-        _pending.append((group, group.replays))
+        _pending.append((group, group.replays, tail))
 
 
 def settle():
     """Read the queued spans' timestamps into the record: exclusive device
-    ms by name, the device gaps between consecutive graphs, and the dead
-    segments that the graphs' flags show. Call at a point where the host
-    has waited for the card anyway; the reading is itself a host span,
-    ``pbr.settle``, the tracing's own cost."""
+    ms by name, the device gaps between consecutive graphs, the tail
+    segments' graph time, and the dead segments that the graphs' flags
+    show. Call at a point where the host has waited for the card anyway;
+    the reading is itself a host span, ``pbr.settle``, the tracing's own
+    cost."""
     with _lock:
         pending = list(_pending)
         _pending.clear()
@@ -477,9 +532,9 @@ def settle():
 
 def _settle(rec, pending):
     device_ms = collections.defaultdict(float)
-    gap_ms, dead, last_end = 0.0, 0, None
+    gap_ms, tail_ms, dead, last_end = 0.0, 0.0, 0, None
     stamps = {}
-    for group, replays in pending:
+    for group, replays, tail in pending:
         t = stamps.get(id(group))
         if t is None:
             t = stamps[id(group)] = group.read()
@@ -492,6 +547,8 @@ def _settle(rec, pending):
             device_ms[name] += x
         if not group.graph:
             continue
+        if tail:
+            tail_ms += ms[0]
         # a graph replayed again since holds that replay's stamps
         fresh = replays == group.replays
         root = group.spans[0]
@@ -499,11 +556,12 @@ def _settle(rec, pending):
             gap_ms += (t[root[2]] - last_end) / 1e6
         last_end = t[root[3]] if fresh else None
         if group.entered is not None:
-            dead += int((~group.entered.cpu()).sum())
+            dead += int((group.entered.cpu() == 0).sum())
     with _lock:
         for name, x in device_ms.items():
             rec.device_ms[name] += float(x)
         rec.graph_gap_ms += float(gap_ms)
+        rec.tail_ms += float(tail_ms)
         rec.counts["dead_segments"] += dead
 
 
@@ -542,8 +600,9 @@ def last_record() -> dict | None:
     """The newest record, or None: ``calls`` (finished passes and fit
     steps), ``counts`` (``COUNTERS``), ``device_ms`` (exclusive device
     milliseconds by span name), ``host_ms`` (host milliseconds by span
-    name) and ``graph_gap_ms`` (device idle time between consecutive graphs
-    of a call, summed). Spans still queued are settled first."""
+    name), ``graph_gap_ms`` (device idle time between consecutive graphs
+    of a call, summed) and ``tail_ms`` (the tail segments' graphs' device
+    time, summed). Spans still queued are settled first."""
     if _record is None:
         return None
     if _pending:

@@ -1386,3 +1386,49 @@ def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
     grad_render(scene, cam, cfg, target, **sel)
     torch.cuda.synchronize()
     assert KP.gather_rows_t_bwd.launches - before == eager
+
+
+EDITS = """
+import dataclasses
+import torch
+from pbrpathtracer_tpu_torch import Camera, RenderConfig, builders
+from pbrpathtracer_tpu_torch.engine.session import RenderSession
+from pbrpathtracer_tpu_torch.ops.integrator import render_sample
+dev = torch.device("cuda", 0)
+cam = Camera.make(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1),
+                  up=(0, 1, 0), fovy=61).to(dev)
+cfg = RenderConfig(width=256, height=192, max_depth=3, seed=4)
+scene = builders.cornell_box(device=dev)
+for k in range(16):
+    diffuse = scene.materials.diffuse.clone()
+    diffuse[4] = torch.tensor((0.1 + 0.05 * k, 0.5, 0.9 - 0.05 * k), device=dev)
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, diffuse=diffuse))
+    s = RenderSession(scene=scene, camera=cam, cfg=cfg, device=dev)
+    s.start()
+    s.step(3)
+    print(torch.cuda.memory_reserved(dev))
+with torch.inference_mode():
+    eager = sum(render_sample(scene, cam, cfg, k) for k in range(3))
+print(bool(torch.equal(eager, s.accum)))
+"""
+
+
+def test_a_session_restarted_on_edited_scenes_keeps_its_memory(dev):
+    """A session restarted on a recoloured scene after every third pass
+    (each edit a new key, captured at its second pass), in a process of its
+    own so that no other test's keys or tensors count: the dropped keys'
+    graph pools go back to the card, so the memory reserved stays where the
+    third edit left it, and the passes equal eager ones."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", EDITS], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.split()
+    reserved = [int(x) for x in lines[:-1]]
+    assert len(reserved) == 16
+    assert max(reserved[3:]) <= reserved[2] + (64 << 20), reserved
+    assert lines[-1] == "True"

@@ -5,11 +5,14 @@ On the CPU: with tracing off no span opens a profiler range and no record
 is made; under ``torch.profiler`` the ``pbr.*`` spans of an eager pass and
 an eager fit step appear, none over a whole call; tracing changes no result
 bit; the counters equal the eager loop's own reads and calls; ``settle``
-keeps exclusive times. On the card (``gpu``, skipped without one): the
-captured graphs carry their spans' events, a replay still equals the eager
-program bit for bit and in launches, the device spans sum to no more than
-the device's own time, and a regrown fwd+bwd counts its capture, its
-regrowth and its dead segments.
+keeps exclusive times and the tail segments' graph time; the segment
+counters count what the flags read. On the card (``gpu``, skipped without
+one): the captured graphs carry their spans' events, a replay still equals
+the eager program bit for bit and in launches, the device spans sum to no
+more than the device's own time, a regrown fwd+bwd counts its capture, its
+regrowth and its dead segments, replayed passes count the segments and
+live lanes that eager ones do, and a Cornell or 50k pass launches and reads
+what it did before the segment counters.
 
 This file imports no JAX; on the card:
 
@@ -93,6 +96,7 @@ def test_off_spans_are_the_shared_null_context(name):
     assert obs.span(name) is obs.span("pbr.load")
     assert obs.host_read(name) is obs.span(name)
     assert obs.device_span(name, False) is obs.span(name)
+    assert obs.segment_run(3, 10) is obs.span(name)
 
 
 # ---- under the profiler -----------------------------------------------------
@@ -171,11 +175,16 @@ def test_counts_of_session_passes(passes):
         s.step(passes)
     rec = obs.last_record()
     runs = _eager_runs(PASS_CFG, range(passes))
+    scene, cam = _cornell()
+    live = sum(int(obs.wavefront_occupancy(scene, cam, PASS_CFG, k)[:r].sum())
+               for k, r in enumerate(runs))
     assert rec["calls"] == passes
     assert rec["counts"] == {
         "graph_launches": 0, "dead_segments": 0, "captures": 0,
         "regrowths": 0,
-        "host_reads": _reads(runs, PASS_CFG.resolved_max_segments())}
+        "host_reads": _reads(runs, PASS_CFG.resolved_max_segments()),
+        "segments": sum(runs), "live_lanes": live,
+        "segment_lanes": sum(runs) * PASS_CFG.num_pixels}
 
 
 def test_counts_of_fit_steps():
@@ -255,6 +264,32 @@ def test_settle_takes_a_graph_replayed_twice_at_its_last_times():
                                               "pbr.shade": 2 * 7})
     # only the last pair is known to be consecutive
     assert rec["graph_gap_ms"] == pytest.approx(10.0)
+
+
+def test_settle_sums_the_tail_segments_graphs():
+    """Replays inside segment runs: a graph entered with under a tenth of
+    its lanes alive adds its whole time (``pbr.graph``'s, nested spans
+    in) to ``tail_ms``; one entered with a tenth or more, or replayed
+    outside a segment run, adds nothing. A captured fwd+bwd's entering
+    flags are live-lane counts, 0 where a segment's lanes were all dead."""
+    busy = _graph(0, NESTED)
+    edge = _graph(11, [("pbr.graph", -1, 0, 2)])
+    tail = _graph(14, [("pbr.graph", -1, 0, 4), ("pbr.hit", 0, 1, 2)])
+    fwdbwd = _graph(20, [("pbr.graph", -1, 0, 1)],
+                    entered=torch.tensor([7, 0, 3, 0]))
+    with obs.tracing():
+        for live, g in ((100, busy), (10, edge), (9, tail)):
+            with obs.segment_run(live, 100):
+                obs.replaying(g)
+        obs.replaying(fwdbwd)
+        obs.call_done()
+    rec = obs.last_record()
+    assert rec["tail_ms"] == pytest.approx(4.0)
+    assert {k: rec["counts"][k] for k in ("segments", "live_lanes",
+                                          "segment_lanes", "dead_segments",
+                                          "graph_launches")} == {
+        "segments": 3, "live_lanes": 119, "segment_lanes": 300,
+        "dead_segments": 2, "graph_launches": 4}
 
 
 def test_replays_while_off_queue_nothing_and_disarm_the_stamps():
@@ -413,3 +448,67 @@ def test_a_regrown_fwd_bwd_counts_its_capture_and_dead_segments(dev):
     assert rec["counts"]["host_reads"] == 2 + warm_up
     assert rec["counts"]["dead_segments"] == dead
     assert rec["device_ms"]["pbr.backward"] > 0
+
+
+@pytest.mark.gpu
+def test_replayed_segment_counters_equal_the_eager_ones(dev):
+    """Passes of the deep glass session (DOF, depth 8, the 128-segment
+    cap), replayed under tracing, count the segments, live lanes and lanes
+    that the same samples count eagerly; the replays' tail segments have a
+    device time, which is part of the graphs' own."""
+    scene = builders.translucent_scene(device=dev)
+    cam = Camera.make(**POSE, focal_dist=2.2, aperture=0.04).to(dev)
+    cfg = RenderConfig(width=64, height=64, max_depth=8, max_segments=128,
+                       seed=6)
+    s = RenderSession(scene=scene, camera=cam, cfg=cfg, device=dev)
+    s.start()
+    s.step(2)                        # eager, then captured
+    with obs.tracing():
+        s.step(3)
+    replayed = obs.last_record()
+    keys = ("segments", "live_lanes", "segment_lanes")
+    from pbrpathtracer_tpu_torch.ops.integrator import render_sample
+    with obs.tracing(), torch.inference_mode():
+        for k in range(2, 5):
+            render_sample(scene, cam, cfg, k)
+    eager = obs.last_record()
+    assert {k: replayed["counts"][k] for k in keys} == \
+        {k: eager["counts"][k] for k in keys}
+    assert replayed["counts"]["graph_launches"] == \
+        replayed["counts"]["segments"] + 3
+    assert 0 < replayed["tail_ms"] <= sum(replayed["device_ms"].values())
+    assert eager["tail_ms"] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene_name, launches, reads", [
+    ("cornell", 5, 6), ("mesh50k", 9, 9)])
+def test_launches_and_reads_per_pass_are_unchanged(dev, scene_name,
+                                                   launches, reads):
+    """A 1024x768 depth-3 session pass of the Cornell box and of the 50k
+    scene, replayed under tracing, launches and reads what the benchmark's
+    sessions did before the segment counters (a prologue and one graph a
+    segment; a flag read before each segment and the one that stops the
+    loop, and the pass's sync): the count the flag now carries adds no
+    launch and no read."""
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                          mesh_scene_camera)
+    if scene_name == "cornell":
+        scene, cam = _cornell(dev)
+    else:
+        scene, cam = mesh_scene(50_000, device=dev), \
+            mesh_scene_camera().to(dev)
+    cfg = RenderConfig(width=1024, height=768, max_depth=3, seed=11)
+    s = RenderSession(scene=scene, camera=cam, cfg=cfg, device=dev)
+    s.start()
+    s.step(1)
+    s.step(1)                        # eager, then captured
+    with obs.tracing():
+        for _ in range(3):
+            s.step(1)
+    counts = obs.last_record()["counts"]
+    segments = counts["segments"]
+    cap = cfg.resolved_max_segments()
+    stops = 0 if segments == 3 * cap else 3
+    assert counts["graph_launches"] == segments + 3 == 3 * launches
+    assert counts["host_reads"] == segments + stops + 3 == 3 * reads
