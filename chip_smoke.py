@@ -551,24 +551,46 @@ def k3_edge_cases(T, W, rs, dev):
         compare_k3(f"T={T}/N={n}", T, W, random_ids(rs, T, dev)[:n], rs))
 
 
-def device_kernels(fn):
-    """The device kernels that one call of ``fn`` launches, by name, from
-    ``torch.profiler``: {name: (count, total microseconds)}. Only the
-    device's activity is traced: the host's operators are not read here, and
-    recording them costs seconds on a run of thousands of kernels."""
+PAD_KERNELS = 256   # spin kernels at each end of a profiled window
+
+
+def _traced(fn):
+    """({name: (count, total microseconds)} of the device kernels that one
+    call of ``fn`` launches, from ``torch.profiler``; what ``fn``
+    returned). Only the device's activity is traced: the host's operators
+    are not read here, and recording them costs seconds on a run of
+    thousands of kernels. ``PAD_KERNELS`` spin kernels run at each end of
+    the window and are left out of the reading: the profiler has dropped
+    the first ~20 and the last few kernels of a window (phases 33-34, the
+    card tests), where a sample's pack build and its backward lie, and a
+    ~10 ms spin at each end did not stop it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(20_000)
+        torch.cuda.synchronize()
+        ret = fn()
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(20_000)
         torch.cuda.synchronize()
     out = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and short_name(ev.name) != "spin_kernel"):
             count, us = out.get(ev.name, (0, 0.0))
             out[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
-    return out
+    return out, ret
+
+
+def device_kernels(fn):
+    """The device kernels that one call of ``fn`` launches, by name, from
+    ``torch.profiler`` (``_traced``), after one call unprofiled:
+    {name: (count, total microseconds)}."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    return _traced(fn)[0]
 
 
 def index_add_ms(idx, cot, T):
@@ -2910,19 +2932,11 @@ def checked_kernels(what, fn):
     trace, the device kernels of K1, K4 and K2 (``KERNEL_OF``) number what
     the wrappers counted over that call, replays included."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from pbrpathtracer_tpu_torch.kernels import native
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, moved = native.launches_during(fn)
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            count, us = out.get(ev.name, (0, 0.0))
-            out[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
+    out, (_, moved) = _traced(lambda: native.launches_during(fn))
     require(out, f"{what}: the profiler delivered no device kernel")
     counted = {f.__name__: n for f, n in moved.items()}
     traced = {w: sum(c for k, (c, _) in out.items()

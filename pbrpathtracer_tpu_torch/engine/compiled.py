@@ -17,7 +17,9 @@ it into CUDA graphs and replays them. A sample is split as
 camera rays and the initial wavefront), one graph each bounce segment
 (compaction, the hit queries, shading, and ``alive.sum()`` of the new
 state: the flag, a count of live lanes), and all of them share one memory
-pool.
+pool. The prologue graph also builds the scene's shading packs, which the
+segment graphs read; the entry holds them, as it holds the graphs'
+outputs, so that no later allocation in the pool takes their memory.
 ``ops.integrator.run_segments`` replays them in the eager loop's order:
 between two segments the host reads the flag back where the eager loop
 reads it, so the same segments run and ``skip_dead_segments`` keeps its
@@ -99,9 +101,10 @@ before the result is used.
   run out of memory in a capture.
 * **Counting.** The kernel wrappers count at capture, where nothing
   launches: each graph keeps what they counted (``native.launches_during``),
-  takes it back, and adds it at every replay. (``ops.hit
-  .autodiff_intersector.queries``, which counts queries in plain torch and
-  no kernel, counts at eager runs only.)
+  takes it back, and adds it at every replay; tracing's ``pack_builds``
+  counter is carried into the replays alike (``observability.count``).
+  (``ops.hit.autodiff_intersector.queries``, which counts queries in plain
+  torch and no kernel, counts at eager runs only.)
 * **Tracing.** Each graph carries the timestamps of its device spans
   (``utils/observability.py``: ``pbr.graph`` around it, the layers' spans
   inside), one-thread kernel nodes that its executable keeps disabled
@@ -303,6 +306,7 @@ class CompiledSample:
         self.graphs = []     # prologue, then one per segment
         self.launches = []   # per graph: {counter: launches per replay}
         self.outputs = []    # per graph: its (state, slot, flag)
+        self.packs = None    # the prologue graph's packs, read by the rest
         self.spans = []      # per graph: its device spans
         self.capture_s = None
         self._last_stream = None
@@ -333,6 +337,7 @@ class CompiledSample:
                                             slot))
         self.capture_s = time.perf_counter() - t0
         self._last_stream = cur
+        self.packs = self.plan.packs
         self.plan = None
         return radiance, run
 

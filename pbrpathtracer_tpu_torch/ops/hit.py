@@ -79,23 +79,25 @@ autodiff_intersector.queries = 0
 
 def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
                 slot_base=rng.SLOT_OPACITY_BASE, intersect_fn=None,
-                alive=None, discrete=False):
+                alive=None, discrete=False, uv_pack=None):
     """Closest hit with stochastic alpha.
 
     Returns (hit bool[N], tri_idx i32[N], t f32[N], u f32[N], v f32[N]).
     Shadow rays pass ``slot_base=SLOT_NEE_OPACITY_BASE`` and
     ``discrete=True``: their caller reads only ``hit`` and ``tri_idx``, so
     the query is stop-gradient'd whatever ``cfg.hit_vjp``. ``alive`` masks
-    dead lanes to a clean miss and lets the kernel skip them. Its device
-    time is the ``pbr.hit`` span's.
+    dead lanes to a clean miss and lets the kernel skip them. ``uv_pack``
+    is the scene's uv-opacity pack where the caller built it
+    (``shadepack.build_packs``); without it a scene with an opacity texture
+    builds it here. Its device time is the ``pbr.hit`` span's.
     """
     with observability.device_span("pbr.hit", ro.is_cuda):
         return _query(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
-                      slot_base, intersect_fn, alive, discrete)
+                      slot_base, intersect_fn, alive, discrete, uv_pack)
 
 
 def _query(scene, cfg, ro, rd, seed, pixel, sample_idx, stream, slot_base,
-           intersect_fn, alive, discrete):
+           intersect_fn, alive, discrete, uv_pack):
     if cfg.opacity_attempts > rng.MAX_OPACITY_ATTEMPTS:
         raise ValueError("opacity_attempts: the draws are one 4-slot group")
     if slot_base % 4 != 0:
@@ -114,17 +116,18 @@ def _query(scene, cfg, ro, rd, seed, pixel, sample_idx, stream, slot_base,
         with torch.no_grad():
             return _closest_hit(scene, cfg, ro.detach(), rd.detach(), seed,
                                 pixel, sample_idx, stream, slot_base,
-                                intersect_fn or default_intersector, alive)
+                                intersect_fn or default_intersector, alive,
+                                uv_pack)
     if cfg.hit_vjp == "winner":
         intersect_fn = with_custom_vjp(intersect_fn or default_intersector)
     elif intersect_fn is None:
         intersect_fn = autodiff_intersector
     return _closest_hit(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
-                        slot_base, intersect_fn, alive)
+                        slot_base, intersect_fn, alive, uv_pack)
 
 
 def _closest_hit(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
-                 slot_base, intersect_fn, alive):
+                 slot_base, intersect_fn, alive, uv_pack):
     N = ro.shape[0]
     t_lower = torch.zeros(N, dtype=torch.float32, device=ro.device)
 
@@ -134,7 +137,7 @@ def _closest_hit(scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
 
     # A lane is settled once its candidate is a miss, an accepted hit, or
     # has no opacity texture; settled lanes never draw again.
-    uvpack = build_uv_opacity_pack(scene)
+    uvpack = build_uv_opacity_pack(scene) if uv_pack is None else uv_pack
     draws = rng.rand_slots4(seed, pixel, sample_idx, stream, slot_base // 4)
     result = (hit, idx, t, u, v)
     settled = torch.zeros(N, dtype=torch.bool, device=ro.device)

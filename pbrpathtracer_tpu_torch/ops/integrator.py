@@ -16,7 +16,9 @@ split where the compiled runner (``engine/compiled.py``) splits it, into a
 prologue (rays and the initial wavefront), one body per segment and an
 epilogue (the scatters): ``SamplePlan``, driven by ``drive``, or by
 ``run_segments`` with a fixed segment count, which reads nothing back (a
-captured fwd+bwd, whose backward cannot be cut at the segments).
+captured fwd+bwd, whose backward cannot be cut at the segments). The
+prologue also builds the scene's shading packs (``shadepack.build_packs``),
+which every segment of the sample reads.
 
 Compiled entries: on a CUDA scene, where no autograd graph is recorded,
 ``render`` and ``render_accumulate`` go through the captured samples of
@@ -56,6 +58,7 @@ from .compaction import (coherence_key, compact_gather, compact_sort,
                          scatter_to_slots)
 from .hit import closest_hit
 from .shade import WavefrontState, shade_segment
+from .shadepack import build_packs
 
 
 @functools.lru_cache(maxsize=32)
@@ -83,11 +86,11 @@ def _grad_mode(scene: Scene, camera: Camera):
     return torch.inference_mode()
 
 
-def _shadow_trace(scene, cfg, seed, pixel, sample_idx, stream):
+def _shadow_trace(scene, cfg, seed, pixel, sample_idx, stream, uv_pack):
     def trace(p, l, sh_alive=None):
         return closest_hit(scene, cfg, p, l, seed, pixel, sample_idx, stream,
                            slot_base=rng.SLOT_NEE_OPACITY_BASE,
-                           alive=sh_alive, discrete=True)
+                           alive=sh_alive, discrete=True, uv_pack=uv_pack)
     return trace
 
 
@@ -109,19 +112,24 @@ class _ShadowTape:
         return out
 
 
-def _segment(scene, cfg, state, seg, sample_idx, seed, remat):
+def _segment(scene, cfg, state, seg, sample_idx, seed, remat, packs=None):
     """One bounce: hit query, then shading, recomputed in the backward as
-    ``remat`` says."""
+    ``remat`` says. ``packs`` (``shadepack.ScenePacks``, or None to build
+    them at each use) are closed over, so a recompute reads them and never
+    builds them again."""
     stream = rng.bounce_stream(seg)
-    shadow = _shadow_trace(scene, cfg, seed, state.pixel, sample_idx, stream)
+    uv_pack = None if packs is None else packs.uv_opacity
+    shadow = _shadow_trace(scene, cfg, seed, state.pixel, sample_idx, stream,
+                           uv_pack)
 
     def query(st):
         return closest_hit(scene, cfg, st.ro, st.rd, seed, st.pixel,
-                           sample_idx, stream, alive=st.alive)
+                           sample_idx, stream, alive=st.alive,
+                           uv_pack=uv_pack)
 
     def query_and_shade(st):
         return shade_segment(scene, cfg, st, *query(st), seg, sample_idx,
-                             seed, shadow)
+                             seed, shadow, packs)
 
     if remat == "all":
         return checkpoint(query_and_shade, state, use_reentrant=False,
@@ -129,13 +137,13 @@ def _segment(scene, cfg, state, seg, sample_idx, seed, remat):
     hits = query(state)
     if remat == "off":
         return shade_segment(scene, cfg, state, *hits, seg, sample_idx, seed,
-                             shadow)
+                             shadow, packs)
     tape = _ShadowTape(shadow)
 
     def shade(st, hits):
         tape.pos = 0
         return shade_segment(scene, cfg, st, *hits, seg, sample_idx, seed,
-                             tape)
+                             tape, packs)
     return checkpoint(shade, state, hits, use_reentrant=False,
                       preserve_rng_state=False)
 
@@ -163,8 +171,10 @@ class SamplePlan:
     """One sample of ``render_sample``, split where the compiled runner
     (``engine/compiled.py``) captures it:
 
-    * ``prologue()``: the camera rays and the initial wavefront;
-    * ``segment(k, state, slot)``: compaction (if any) and bounce segment k;
+    * ``prologue()``: the scene's shading packs (``packs``, kept on the
+      plan), the camera rays and the initial wavefront;
+    * ``segment(k, state, slot)``: compaction (if any) and bounce segment k,
+      which reads the prologue's packs;
     * ``epilogue(state, slot)``: the scatters that undo compaction and the
       block pixel order; the radiance f32[N, 3].
 
@@ -195,6 +205,7 @@ class SamplePlan:
             pixel_idx = torch.arange(cfg.width * cfg.height,
                                      dtype=torch.int32, device=device)
         self.pixel_idx = pixel_idx
+        self.packs = None   # the prologue's shadepack.ScenePacks
 
     def _flag(self, state, next_seg):
         if self.cfg.skip_dead_segments and next_seg < self.n_segments:
@@ -202,6 +213,7 @@ class SamplePlan:
         return None
 
     def prologue(self):
+        self.packs = build_packs(self.scene)
         ro, rd = generate_rays(self.camera, self.cfg.width, self.cfg.height,
                                self.seed, self.sample_idx, self.pixel_idx)
         state = WavefrontState.initial(ro, rd, self.pixel_idx)
@@ -212,7 +224,7 @@ class SamplePlan:
         if self.compact is not None:
             state, slot = self.compact(state, slot)
         state = _segment(self.scene, self.cfg, state, seg, self.sample_idx,
-                         self.seed, self.remat)
+                         self.seed, self.remat, self.packs)
         return state, slot, self._flag(state, seg + 1)
 
     def epilogue(self, state, slot):

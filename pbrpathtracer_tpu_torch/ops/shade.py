@@ -121,14 +121,16 @@ def cone_direction(basis, last_axis, nx, thresh, w, theta):
 
 def direct_illumination(scene: Scene, p, n, diffuse, seed, pixel, sample_idx,
                         stream, shadow_trace, nee_physical: bool,
-                        draws=None, alive=None):
+                        draws=None, alive=None, light_pack=None):
     """Next-event estimation: uniform light pick, (√u, v) area warp, and a
     shadow ray that must first hit the chosen light triangle; contribution
     = L_emit·I · diffuse · dot(n, l). ``nee_physical`` adds the area-measure
     pdf conversion the reference omits: × num_lights × area × cos_light / r².
 
     ``draws`` optionally supplies the (light-pick, u, v) uniforms (slots
-    13-15) when the caller already drew the group.
+    13-15) when the caller already drew the group. ``light_pack`` is the
+    scene's light pack where the caller built it; without it it is built
+    here.
     """
     L = scene.num_lights
     if L == 0:
@@ -140,8 +142,10 @@ def direct_illumination(scene: Scene, p, n, diffuse, seed, pixel, sample_idx,
     else:
         u_pick, u_su, sv = draws
     lid = torch.clamp(torch.floor(u_pick * L).to(torch.int32), 0, L - 1)
-    lv0, le1, le2, lcolor, ltri_f = sp.gather_fields(
-        sp.build_light_pack(scene), lid, sp.LIGHT_FIELDS)
+    if light_pack is None:
+        light_pack = sp.build_light_pack(scene)
+    lv0, le1, le2, lcolor, ltri_f = sp.gather_fields(light_pack, lid,
+                                                     sp.LIGHT_FIELDS)
     ltri = ltri_f.to(torch.int32)
 
     lv1 = lv0 + le1
@@ -211,18 +215,21 @@ def _winner_straight_through(ro, rd, v0, e1, e2, hit, t, bu, bv):
 
 def shade_segment(scene: Scene, cfg, state: WavefrontState,
                   hit, tri_idx, t, bu, bv,
-                  seg, sample_idx, seed, shadow_trace) -> WavefrontState:
+                  seg, sample_idx, seed, shadow_trace,
+                  packs=None) -> WavefrontState:
     """Advance every lane by one bounce segment; returns the new state.
-    ``shadow_trace(p, l, alive)`` answers the NEE shadow query. Its device
-    time, less the shadow queries, pack builds and fetches in it, is the
-    ``pbr.shade`` span's."""
+    ``shadow_trace(p, l, alive)`` answers the NEE shadow query. ``packs``
+    are the scene's ``shadepack.ScenePacks`` where the caller built them
+    (once per sample); without them the tri pack and the light pack are
+    built here. Its device time, less the shadow queries, pack builds and
+    fetches in it, is the ``pbr.shade`` span's."""
     with observability.device_span("pbr.shade", state.ro.is_cuda):
         return _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
-                      sample_idx, seed, shadow_trace)
+                      sample_idx, seed, shadow_trace, packs)
 
 
 def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
-           seed, shadow_trace):
+           seed, shadow_trace, packs):
     tex = scene.textures
     N = state.ro.shape[0]
     dev = state.ro.device
@@ -245,7 +252,8 @@ def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
      f_diffuse, f_specular, f_emissive, f_emiss_int, f_roughness,
      f_reflectiveness, f_transl, f_ior, f_mtype, f_texidx,
      f_tangent, f_bitangent, f_v0, f_e1, f_e2) = sp.gather_fields(
-         sp.build_tri_pack(scene), tri_idx, sp.TRI_FIELDS)
+         sp.build_tri_pack(scene) if packs is None else packs.tri, tri_idx,
+         sp.TRI_FIELDS)
 
     if cfg.hit_vjp == "recompute" and torch.is_grad_enabled() and any(
             x.requires_grad for x in (state.ro, rd, f_v0, f_e1, f_e2)):
@@ -370,7 +378,9 @@ def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
                               sample_idx, stream, shadow_trace,
                               cfg.nee_physical,
                               draws=(d_pick, d_nee_u, d_nee_v),
-                              alive=active & diffuse_branch)
+                              alive=active & diffuse_branch,
+                              light_pack=None if packs is None else
+                              packs.light)
     nee = torch.where((active & diffuse_branch)[:, None], nee, 0.0)
 
     # ---- resolve branches ----

@@ -29,9 +29,18 @@ f32[M, 21] ``material_table``, so autograd carries the block's cotangent
 through K3 and the table's ``cat`` to the ``Materials`` leaves. The light
 pack indexes its few rows with torch; the uv-opacity pack's material column
 is an integer field and carries no gradient.
+
+A pack depends on the scene's leaves alone, so a sample builds each once
+(``build_packs``, in ``ops.integrator.SamplePlan.prologue``) and hands it
+to every segment; under a graph autograd sums the segments' cotangents of
+a pack before its one backward. Nothing keeps a pack across samples: a
+scene's leaves may change in place between two (a fit's update). Every
+build counts one in the ``pack_builds`` counter.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -168,6 +177,7 @@ def build_tri_pack(scene) -> torch.Tensor:
     g, m = scene.geom, scene.materials
     if g.num_triangles >= 2 ** 24 or m.num_materials >= 2 ** 24:
         raise ValueError("ids ride as float32 in the pack: need < 2**24")
+    observability.count("pack_builds")
     with observability.device_span("pbr.pack", g.v0.is_cuda):
         return _tri_pack(g, m)
 
@@ -204,6 +214,7 @@ def build_light_pack(scene) -> torch.Tensor:
     g, m = scene.geom, scene.materials
     if g.num_triangles >= 2 ** 24:
         raise ValueError("light tri ids ride as float32: need < 2**24")
+    observability.count("pack_builds")
     with observability.device_span("pbr.pack", g.v0.is_cuda):
         lt = scene.lights.long()
         lmid = g.mat_id[lt].long()
@@ -215,6 +226,24 @@ def build_light_pack(scene) -> torch.Tensor:
 def build_uv_opacity_pack(scene) -> torch.Tensor:
     """f32[T, 7] = (uv0, uv1, uv2, opacity texture index)."""
     g, m = scene.geom, scene.materials
+    observability.count("pack_builds")
     with observability.device_span("pbr.pack", g.v0.is_cuda):
         otex = m.tex_index[g.mat_id.long(), TEX_OPACITY]
         return torch.cat([g.uv0, g.uv1, g.uv2, _col(otex)], dim=1)
+
+
+class ScenePacks(NamedTuple):
+    """The packs that a sample's segments read; None where the scene needs
+    none."""
+
+    tri: torch.Tensor
+    light: torch.Tensor | None          # None without lights
+    uv_opacity: torch.Tensor | None     # None without an opacity texture
+
+
+def build_packs(scene) -> ScenePacks:
+    """Every pack that a sample of ``scene`` reads, each built once."""
+    return ScenePacks(
+        build_tri_pack(scene),
+        build_light_pack(scene) if scene.num_lights else None,
+        build_uv_opacity_pack(scene) if scene.has_opacity_tex else None)

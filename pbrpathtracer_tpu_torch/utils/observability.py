@@ -49,6 +49,10 @@ a shared no-op context, and no counter moves.
   ``live_lanes`` (the lanes alive on entering each, from the count that
   the flag read already brings) and ``segment_lanes`` (the lanes those
   segments ran over, so ``live_lanes / segment_lanes`` is the occupancy).
+  ``pack_builds`` counts the builds of the shading packs
+  (``ops/shadepack``: one per pack a sample, or per use where a caller
+  hands none); a graph keeps the builds captured into it and adds them at
+  every replay (``count``).
   The record's ``tail_ms`` sums, over the replays of segment graphs entered
   with under ``TAIL_SHARE`` of their lanes alive, each graph's device time
   from its first stamp to its last (``pbr.graph``'s, nested spans
@@ -121,8 +125,10 @@ def wavefront_occupancy(scene, camera, cfg, sample_idx=0):
     from ..ops.camera import generate_rays
     from ..ops.hit import closest_hit
     from ..ops.shade import WavefrontState, shade_segment
+    from ..ops.shadepack import build_packs
 
     dev = scene.device
+    packs = build_packs(scene)
     pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
     seed = cfg.seed
     ro, rd = generate_rays(camera.to(dev), cfg.width, cfg.height, seed,
@@ -133,14 +139,15 @@ def wavefront_occupancy(scene, camera, cfg, sample_idx=0):
         counts.append(state.alive.sum())
         stream = rng.bounce_stream(seg)
         hits = closest_hit(scene, cfg, state.ro, state.rd, seed, pix,
-                           sample_idx, stream, alive=state.alive)
+                           sample_idx, stream, alive=state.alive,
+                           uv_pack=packs.uv_opacity)
 
         def shadow_trace(p, l, sh_alive=None):
             return closest_hit(scene, cfg, p, l, seed, pix, sample_idx,
                                stream, slot_base=rng.SLOT_NEE_OPACITY_BASE,
-                               alive=sh_alive)
+                               alive=sh_alive, uv_pack=packs.uv_opacity)
         state = shade_segment(scene, cfg, state, *hits, seg, sample_idx,
-                              seed, shadow_trace)
+                              seed, shadow_trace, packs)
     return torch.stack(counts).cpu().numpy()
 
 
@@ -181,7 +188,8 @@ def auto_resolution(base_width: int, base_height: int, aspect: float):
 # ---- tracing: the program's spans and counters (module docstring) ---------
 
 COUNTERS = ("graph_launches", "host_reads", "dead_segments", "captures",
-            "regrowths", "segments", "live_lanes", "segment_lanes")
+            "regrowths", "segments", "live_lanes", "segment_lanes",
+            "pack_builds")
 TAIL_SHARE = 0.1   # a segment entered with fewer live lanes is in the tail
 
 _NULL = contextlib.nullcontext()
@@ -287,6 +295,20 @@ def span(name: str):
     return _HostSpan(name)
 
 
+def count(name: str):
+    """One more of the counter ``name``, while tracing. Inside a graph
+    being captured the graph keeps it instead, tracing on or off, and
+    ``replaying`` adds it at every replay while tracing: the graph runs
+    the counted work at each replay, as a kernel wrapper's launch is
+    carried (``kernels/native.py``)."""
+    group = getattr(_local, "group", None)
+    if group is not None and group.graph:
+        group.counts[name] += 1
+    elif _profiler._is_profiler_enabled or _forced:
+        with _lock:
+            _begin().counts[name] += 1
+
+
 def host_read(name: str):
     """A host span around one of the program's blocking reads of the card,
     counted in ``host_reads``."""
@@ -309,6 +331,7 @@ class _Group:
     def __init__(self, graph: bool):
         self.graph = graph
         self.spans = []
+        self.counts = collections.Counter()   # a graph's, per replay
         self.flags = []        # the flags entering each captured segment
         self.entered = None    # those flags stacked, a graph output
         self.replays = 0
@@ -508,7 +531,10 @@ def replaying(group):
         return
     tail = getattr(_local, "tail", False)
     with _lock:
-        _begin().counts["graph_launches"] += 1
+        counts = _begin().counts
+        counts["graph_launches"] += 1
+        for name, n in group.counts.items():
+            counts[name] += n
         group.replays += 1
         _pending.append((group, group.replays, tail))
 

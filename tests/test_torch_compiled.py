@@ -221,7 +221,7 @@ def test_launch_deltas_of_a_segment(name, counters):
     assert all(fn in native.COUNTED for fn in counters)
     with torch.inference_mode():
         plan = pint.SamplePlan(scene, cam, cfg, 0)
-        state, slot, _ = plan.prologue()
+        (state, slot, _), built = native.launches_during(plan.prologue)
         before = {fn: fn.launches for fn in native.COUNTED}
         out, delta = native.launches_during(
             lambda: plan.segment(0, state, slot))
@@ -229,12 +229,14 @@ def test_launch_deltas_of_a_segment(name, counters):
              if fn.launches != n}
     assert delta == moved
     # one bounce query and one shadow query; one tri-pack and one
-    # light-pack fetch, the tri pack's material join and, on a textured
-    # scene, the five texture reads
+    # light-pack fetch and, on a textured scene, the five texture reads;
+    # the tri pack's material join is the prologue's, which builds the
+    # packs of the sample
     query, gather = counters
     reads = 5 if scene.has_any_texture else 0
     assert {fn: delta[fn] for fn in counters} == {query: 2,
-                                                  gather: 3 + reads}
+                                                  gather: 2 + reads}
+    assert built == {gather: 1}
     assert set(delta) == set(counters)   # no kernel wrapper on the CPU
     after = {fn: fn.launches for fn in native.COUNTED}
     native.add_launches(delta, -1)      # what a capture does

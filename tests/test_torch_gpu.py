@@ -847,6 +847,46 @@ def test_compiled_counters_advance_by_the_captured_launches(dev):
         assert replay in prefixes
 
 
+def test_a_captured_session_builds_its_packs_in_the_prologue(dev):
+    """A captured session key builds the shading packs in its prologue
+    graph, and its segment graphs only read them: the material join's K2
+    launch, the only K2 launch of a prologue, is the prologue graph's, and
+    each segment graph launches K2 for its two fetches alone (the tri pack
+    and the light pack; three while each segment built its tri pack). The
+    entry holds the packs, so replays with other allocations and another
+    key's capture between them equal the eager passes bit for bit, and a
+    traced replay counts two pack builds a pass."""
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    from pbrpathtracer_tpu_torch.engine.session import RenderSession
+    from pbrpathtracer_tpu_torch.utils import observability as obs
+    scene, cam, cfg = _compiled_case("cornell", dev)
+    cfg = cfg.replace(spp=1)
+    s = RenderSession(scene=scene, camera=cam, cfg=cfg, device=dev)
+    s.start()
+    s.step(2)                                   # eager, then captured
+    entry = SAMPLES.entry(scene, cam, cfg)
+    assert entry is not None and entry.packs.uv_opacity is None
+    assert entry.launches[0].get(KP.gather_rows_t, 0) == 1
+    assert [d.get(KP.gather_rows_t, 0) for d in entry.launches[1:]] == \
+        [2] * entry.n_segments
+    held = []
+    other, other_cam, other_cfg = _compiled_case("translucent", dev)
+    for k in range(2):
+        held.append(torch.randn(1 << 22, device=dev))
+        render(other, other_cam, other_cfg.replace(spp=1))  # eager, capture
+        held.append(torch.ones(1 << 21, device=dev))
+        s.step(1)
+    with obs.tracing():
+        s.step(2)
+    counts = obs.last_record()["counts"]
+    assert counts["pack_builds"] == 4 and counts["graph_launches"] > 2
+    accum = torch.zeros_like(s.accum)
+    with torch.inference_mode():
+        for k in range(6):
+            accum = accum + render_sample(scene, cam, cfg, k)
+    assert s.samples == 6 and torch.equal(s.accum, accum)
+
+
 def test_compiled_session_with_concurrent_reads(dev):
     """A run_async session captures on its thread while this one reads the
     image; it ends where step() ends, bit for bit."""
@@ -1306,7 +1346,7 @@ def test_captured_textured_fwd_bwd_runs_no_index_backward(dev):
     none at all when the textures alone are differentiated; with the
     materials too, only the light pack's (it indexes its few rows with
     torch), as many as one light-pack backward launches, per light-pack
-    fetch."""
+    build: one a sample, however many segments fetch from it."""
     from chip_smoke import device_kernels
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
     from pbrpathtracer_tpu_torch.utils.roofline import record_launches
@@ -1337,16 +1377,17 @@ def test_captured_textured_fwd_bwd_runs_no_index_backward(dev):
             scene, materials=dataclasses.replace(
                 m, emissive=em, emissive_intensity=ei)))
         torch.autograd.grad(pack.sum(), (em, ei))
-    per_fetch = _index_backwards(device_kernels(light_pack_backward))
-    assert light_fetches > 0 and per_fetch > 0
-    assert counts["both"] == light_fetches * per_fetch
+    per_build = _index_backwards(device_kernels(light_pack_backward))
+    assert light_fetches > cfg.spp and per_build > 0
+    assert counts["both"] == cfg.spp * per_build
 
 
 def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
         dev, monkeypatch):
     """``gather_rows_t_bwd.launches`` over one fwd+bwd of a textured scene,
     eager and replayed: one per pack fetch (tri pack W = 55, light pack
-    W = 13), one per tri-pack build (its material join, W = 21) and one per
+    W = 13), one per tri-pack build (its material join, W = 21: one a
+    sample, the segments' cotangents of the pack summed first) and one per
     texture read whose value reaches the loss (W = 4; of the five reads a
     segment, a read that feeds only the rays after the last segment gets no
     gradient, so no backward)."""
@@ -1377,7 +1418,7 @@ def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
     del records, reads
     segments = widths[55]
     assert segments > 0 and 3 * segments <= len(reached) <= 5 * segments
-    assert widths == {55: segments, 13: segments, 21: segments,
+    assert widths == {55: segments, 13: segments, 21: cfg.spp,
                       4: len(reached)}
     assert eager == sum(widths.values())
     grad_render(scene, cam, cfg, target, **sel)

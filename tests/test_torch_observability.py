@@ -184,7 +184,8 @@ def test_counts_of_session_passes(passes):
         "regrowths": 0,
         "host_reads": _reads(runs, PASS_CFG.resolved_max_segments()),
         "segments": sum(runs), "live_lanes": live,
-        "segment_lanes": sum(runs) * PASS_CFG.num_pixels}
+        "segment_lanes": sum(runs) * PASS_CFG.num_pixels,
+        "pack_builds": 2 * passes}
 
 
 def test_counts_of_fit_steps():
@@ -313,7 +314,8 @@ def dev():
 @pytest.mark.gpu
 def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     """Passes of a 64x48 Cornell session, captured and replayed: every
-    segment graph holds pbr.graph and the layers' events; with tracing on
+    segment graph holds pbr.graph and the layers' events, the prologue
+    graph pbr.graph and the pack builds' (once a sample); with tracing on
     the replays give device ms per layer, one launch per graph run and one
     read per flag and per pass, and the accumulation and the kernels'
     launches equal the eager passes' bit for bit."""
@@ -326,10 +328,12 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     scene, cam = s._scene, s._camera.to(dev)
     entry = compiled.SAMPLES.entry(scene, cam, cfg)
     assert entry is not None
+    assert {x[0] for x in entry.spans[0].spans} == {"pbr.graph",
+                                                      "pbr.pack"}
     for spans in entry.spans[1:]:
         names = {x[0] for x in spans.spans}
-        assert {"pbr.graph", "pbr.hit", "pbr.fetch", "pbr.shade",
-                "pbr.pack"} <= names
+        assert {"pbr.graph", "pbr.hit", "pbr.fetch", "pbr.shade"} <= names
+        assert "pbr.pack" not in names
     runs = []
 
     def counted(plan, count=None):
@@ -344,12 +348,13 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     replay = {f: f.launches - n for f, n in before.items()}
     assert rec["calls"] == 3 and len(runs) == 3
     got = {k: rec["counts"][k] for k in ("graph_launches", "host_reads",
-                                          "dead_segments")}
+                                          "dead_segments", "pack_builds")}
     # a flag read before each segment run and one that stopped each pass;
-    # one sync after the three passes of the step
+    # one sync after the three passes of the step; the prologue graph's
+    # two pack builds (tri and light) a pass
     assert got == {"graph_launches": sum(runs) + 3,
                    "host_reads": _reads(runs, cfg.resolved_max_segments())
-                   + 1, "dead_segments": 0}, (runs, rec)
+                   + 1, "dead_segments": 0, "pack_builds": 6}, (runs, rec)
     assert all(rec["device_ms"][k] > 0 for k in LAYERS + ("pbr.graph",))
     assert rec["graph_gap_ms"] > 0
     # the same samples eagerly, tracing on: the same sum and launches
