@@ -178,7 +178,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                two steps from the same start are bit-identical under
                ``torch.use_deterministic_algorithms(True)``; the overlapped
                step (spp 2) equals the fused step at spp 2 (parameters atol
-               1e-6); ``all_reduce_flat.calls`` 1 and 3; K1, K2 and K3
+               1e-6); ``all_reduces`` 1 and 3; K1, K2 and K3
                launched and no plain version. Milliseconds per step of both,
                of the overlapped one with and without ``async_op``, and of
                the all-reduce of the 50k scene's texture gradient alone.
@@ -250,7 +250,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                and the fwd+bwd, replayed from the captured fwd+bwd, the
                512^2 depth-8
                translucent forward behind a lens, the 50k and 1M scenes built
-               in phase 12 at 512^2 depth 3), with the counters at 0: its
+               in phase 12 at 512^2 depth 3), its launches counted: its
                JSON line printed; rays/s > 0; no error key; both
                ``fraction_of_roofline`` in (0, 1.05]; ``live_per_segment``
                equal to ``wavefront_occupancy`` of the flagship; its launches
@@ -347,8 +347,8 @@ fetched ids, its determinism), which runs ``eager_render``,
 ``--latency`` times what meets a new key (``latency_main``), on this
 checkout's port or another tree's, so that a parent and its change are
 read by the same code.
-Every large-scene run (phases 14-16) is driven with the launch counters at 0
-and must launch K4, never K1 (``intersect_dense``) and no plain version; so
+Every large-scene run (phases 14-16) has its launches counted
+(``observability.counted``) and must launch K4, never K1 (``intersect_dense``) and no plain version; so
 are the session and preview runs of phases 20 and 21, each with the kernels
 of its route.
 
@@ -763,35 +763,31 @@ def texture_grad_phase(camera, dev):
             "algorithms")
 
 
-def all_counters():
-    """Every launch counter of the port's kernel wrappers and their plain
-    versions."""
-    from pbrpathtracer_tpu_torch.kernels import intersect as KI
-    from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
-    from pbrpathtracer_tpu_torch.kernels import packgather as KP
-    return (KI.intersect_dense, KI.intersect_dense_plain, KL.intersect_list,
-            KL.intersect_list_plain, KP.gather_rows_t, KP.gather_rows_t_plain,
-            KP.gather_rows_t_bwd, KP.gather_rows_t_bwd_plain)
+# The launch counts of the port's kernel wrappers and their plain versions,
+# by name, in the program's count table (``utils/observability.py``).
+KERNEL_COUNTS = ("intersect_dense", "intersect_dense_plain", "intersect_list",
+                 "intersect_list_plain", "gather_rows_t",
+                 "gather_rows_t_plain", "gather_rows_t_bwd",
+                 "gather_rows_t_bwd_plain")
 
 
 def counted_run(what, fn, launched, never=(), autodiff=False):
-    """Run ``fn`` with every launch counter at 0: the wrappers named in
-    ``launched`` must have launched their kernels, those in ``never`` not,
-    and no kernel's plain version may have run. Nor may a query have run in
-    plain torch through ``ops.hit.autodiff_intersector`` (counted under
-    ``autodiff_queries``), unless ``autodiff`` says that the run is one under
-    ``hit_vjp="autodiff"``: that mode differentiates the plain intersector
-    by definition, on the card too, and then such queries must be there.
-    Returns (fn's result, counts)."""
+    """Run ``fn`` and read its launches from the program's count table
+    (``observability.counted``): the wrappers named in ``launched`` must
+    have launched their kernels, those in ``never`` not, and no kernel's
+    plain version may have run. Nor may a query have run in plain torch
+    through ``ops.hit.autodiff_intersector`` (counted under
+    ``autodiff_queries``), unless ``autodiff`` says that the run is one
+    under ``hit_vjp="autodiff"``: that mode differentiates the plain
+    intersector by definition, on the card too, and then such queries must
+    be there. Returns (fn's result, counts: the launches by wrapper and the
+    plain-torch queries, zeros included)."""
     import torch
-    from pbrpathtracer_tpu_torch.ops.hit import autodiff_intersector
-    for f in all_counters():
-        f.launches = 0
-    autodiff_intersector.queries = 0
-    out = fn()
+    from pbrpathtracer_tpu_torch.utils import observability
+    out, moved = observability.counted(fn)
     torch.cuda.synchronize()
-    counts = {f.__name__: f.launches for f in all_counters()}
-    counts["autodiff_queries"] = autodiff_intersector.queries
+    counts = {k: moved.get(k, 0)
+              for k in (*KERNEL_COUNTS, "autodiff_queries")}
     print(f"  {what} launches: {counts}", flush=True)
     if autodiff:
         require(counts["autodiff_queries"] > 0,
@@ -1809,10 +1805,9 @@ def capture_sgd(lr):
 
 def counted_reduces(fn):
     """(fn's result, all-reduces made, their bytes)."""
-    from pbrpathtracer_tpu_torch.parallel.mesh import all_reduce_flat
-    all_reduce_flat.calls = all_reduce_flat.bytes = 0
-    out = fn()
-    return out, all_reduce_flat.calls, all_reduce_flat.bytes
+    from pbrpathtracer_tpu_torch.utils import observability
+    out, moved = observability.counted(fn)
+    return out, moved.get("all_reduces", 0), moved.get("all_reduce_bytes", 0)
 
 
 def shard_phase(cornell, camera, mesh, smi_line):
@@ -2724,10 +2719,9 @@ def bench_phase(cornell, camera, k4, flagship_counts, fwdbwd_counts,
 
     # its launches per step: those of the same paths counted above, and its
     # roofline's launch records those of the wrappers' counters
-    per_step = ex["launches_per_step"]
-
     def of(counts):
-        return {k: counts[k] for k in BENCH_KERNELS}
+        return {k: counts.get(k, 0) for k in BENCH_KERNELS}
+    per_step = {k: of(v) for k, v in ex["launches_per_step"].items()}
     for what, got, want in (
             ("fwd", per_step["fwd"], of(flagship_counts)),
             ("fwdbwd", per_step["fwdbwd"], of(fwdbwd_counts)),
@@ -2932,13 +2926,12 @@ def checked_kernels(what, fn):
     trace, the device kernels of K1, K4 and K2 (``KERNEL_OF``) number what
     the wrappers counted over that call, replays included."""
     import torch
-    from pbrpathtracer_tpu_torch.kernels import native
+    from pbrpathtracer_tpu_torch.utils import observability
     fn()
     fn()
     torch.cuda.synchronize()
-    out, (_, moved) = _traced(lambda: native.launches_during(fn))
+    out, (_, counted) = _traced(lambda: observability.counted(fn))
     require(out, f"{what}: the profiler delivered no device kernel")
-    counted = {f.__name__: n for f, n in moved.items()}
     traced = {w: sum(c for k, (c, _) in out.items()
                      if short_name(k).startswith(kernel))
               for w, kernel in KERNEL_OF.items()}
@@ -3313,9 +3306,9 @@ def compiled_grad_reading(name, scene, camera, cfg, select, reps, launched,
     entry = GRADS.entry(params, scene, camera, cfg, target)
     require(entry is not None and GRADS.captures == captures + 1,
             f"{name}: {GRADS.captures - captures} captures in two calls")
-    # a replay runs no query in plain torch: nothing for autodiff to count
+    # a replay counts the plain-torch queries its capture ran
     replay, ccounts = counted_run(f"{name}, compiled replay", compiled,
-                                  launched, never)
+                                  launched, never, autodiff=autodiff)
     moved, moved_eager = compiled(cfg.seed + 1), eager(cfg.seed + 1)
     errs = {}
     for got, want in ((first, ref), (second, ref), (replay, ref),
@@ -4020,6 +4013,7 @@ def main():
         gather_rows_t_plain)
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
     from pbrpathtracer_tpu_torch.ops.camera import generate_rays
+    from pbrpathtracer_tpu_torch.utils import observability
 
     t0 = time.time()
     log = native.build()
@@ -4078,12 +4072,9 @@ def main():
 
     # ---- 5. flagship ----
     cfg = RenderConfig(width=512, height=512, max_depth=4, spp=1, seed=0)
-    counters = all_counters()
-    for fn in counters:
-        fn.launches = 0
-    img = render(cornell, camera, cfg)
+    img, moved = observability.counted(lambda: render(cornell, camera, cfg))
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {k: moved.get(k, 0) for k in KERNEL_COUNTS}
     finite = bool(torch.isfinite(img).all())
     nonneg = bool((img >= 0).all())
     peak = float(img.max())
@@ -4158,11 +4149,10 @@ def main():
 
     # ---- 8. flagship fwd+bwd ----
     zero = torch.zeros((512, 512, 3), device=dev)
-    for fn in counters:
-        fn.launches = 0
-    loss, grads = eager_grad_render(cornell, camera, cfg, zero)
+    (loss, grads), moved = observability.counted(
+        lambda: eager_grad_render(cornell, camera, cfg, zero))
     torch.cuda.synchronize()
-    bwd_launches = {fn.__name__: fn.launches for fn in counters}
+    bwd_launches = {k: moved.get(k, 0) for k in KERNEL_COUNTS}
     finite = bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads.values())
     print(f"flagship fwd+bwd: 512x512 depth 4 spp 1 loss={float(loss):.6f} "
@@ -4237,11 +4227,10 @@ def main():
 
     def query():
         return intersect_dense(cornell.geom, ro, rd, zeros, ones, perm=perm)
-    before = intersect_dense.launches
-    ops = torch_ops(query)
-    print(f"K1 query: {intersect_dense.launches - before} kernel launch, "
+    ops, moved = observability.counted(lambda: torch_ops(query))
+    print(f"K1 query: {moved.get('intersect_dense', 0)} kernel launch, "
           f"ATen operators dispatched: {ops}", flush=True)
-    require(intersect_dense.launches == before + 1
+    require(moved == {"intersect_dense": 1}
             and all(k.startswith("aten.empty") for k in ops),
             "a K1 query ran an eager torch kernel beside its allocations")
 

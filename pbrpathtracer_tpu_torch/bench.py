@@ -68,11 +68,11 @@ from .diff.loss import eager_loss_and_grad, loss_and_grad
 from .diff.params import get_params
 from .engine.compiled import SAMPLES
 from .engine.config import RenderConfig
-from .kernels import intersect, intersect_list, packgather
 from .ops.integrator import render_sample
 from .scene.big_scenes import mesh_scene, mesh_scene_camera, million_tri_scene
 from .scene.builders import cornell_box, translucent_scene
 from .scene.scene import Camera
+from .utils import observability
 from .utils.observability import rays_per_sample, wavefront_occupancy
 from .utils.roofline import count_program
 
@@ -184,17 +184,13 @@ def _require_card() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-COUNTERS = (intersect.intersect_dense, packgather.gather_rows_t,
-            packgather.gather_rows_t_bwd, intersect_list.intersect_list)
-
-
-def step_launches(step) -> dict:
-    """Run ``step(0)`` once (the timing's warm-up) and return the kernel
-    launches it made, by wrapper, from the wrappers' launch counters."""
-    before = [f.launches for f in COUNTERS]
-    step(0)
+def step_counts(step) -> dict:
+    """Run ``step(0)`` once (the timing's warm-up) and return what it
+    counted (``utils.observability.counted``): its kernel launches by
+    wrapper, graph launches, host reads and segments."""
+    _, counts = observability.counted(lambda: step(0))
     torch.cuda.synchronize()
-    return {f.__name__: f.launches - b for f, b in zip(COUNTERS, before)}
+    return counts
 
 
 def queued_slope(step, reps: int) -> float:
@@ -258,7 +254,7 @@ def measure_flagship(extra_workloads=True, big_scenes=None):
     target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
     fwd = fwd_step(scene, camera, cfg)
     fwdbwd = fwdbwd_step(scene, camera, cfg, params, target)
-    launches = {"fwd": step_launches(fwd), "fwdbwd": step_launches(fwdbwd)}
+    launches = {"fwd": step_counts(fwd), "fwdbwd": step_counts(fwdbwd)}
     t_fwd = queued_slope(fwd, FWD_REPS)
     t_fwdbwd = queued_slope(fwdbwd, FWDBWD_REPS)
 
@@ -279,7 +275,7 @@ def measure_flagship(extra_workloads=True, big_scenes=None):
         dcfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=8, spp=1,
                             seed=0)
         dfwd = fwd_step(dscene, dcam, dcfg)
-        launches["deep_fwd"] = step_launches(dfwd)
+        launches["deep_fwd"] = step_counts(dfwd)
         t_deep = queued_slope(dfwd, DEEP_REPS)
         occ = wavefront_occupancy(dscene, dcam, dcfg)
         deep = {
@@ -297,7 +293,7 @@ def measure_flagship(extra_workloads=True, big_scenes=None):
                             ("1M", lambda: million_tri_scene(device=dev))):
             bscene = given[label] if label in given else make()
             bstep = fwd_step(bscene, mcam, bcfg)
-            launches[f"{label}_fwd"] = step_launches(bstep)
+            launches[f"{label}_fwd"] = step_counts(bstep)
             t_b = queued_slope(bstep, BIG_REPS)
             bigscene[f"paths_per_s_{label}tris"] = round(n_pix / t_b, 1)
             bigscene[f"t_sample_{label}tris_ms"] = round(t_b * 1e3, 1)

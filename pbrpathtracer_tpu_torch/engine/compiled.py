@@ -99,12 +99,12 @@ before the result is used.
   capture is under way: so a dropped key empties the cache, or a session
   that restarts on edited scenes would fill the card with dead pools and
   run out of memory in a capture.
-* **Counting.** The kernel wrappers count at capture, where nothing
-  launches: each graph keeps what they counted (``native.launches_during``),
-  takes it back, and adds it at every replay; tracing's ``pack_builds``
-  counter is carried into the replays alike (``observability.count``).
-  (``ops.hit.autodiff_intersector.queries``, which counts queries in plain
-  torch and no kernel, counts at eager runs only.)
+* **Counting.** What the program counts goes into ``observability``'s one
+  table. A count noted while a graph is being captured (a kernel launch, a
+  pack build, a plain-torch query), where nothing runs, goes to that graph
+  instead, and ``observability.replaying`` adds the graph's counts, with
+  one graph launch, at each of its replays. A capture and a regrowth are
+  counted too (``captures``, ``regrowths``).
 * **Tracing.** Each graph carries the timestamps of its device spans
   (``utils/observability.py``: ``pbr.graph`` around it, the layers' spans
   inside), one-thread kernel nodes that its executable keeps disabled
@@ -245,18 +245,17 @@ def _set(static, value):
 
 
 def _capture(stream, pool, body):
-    """(graph, ``body()``, {counter: launches per replay}, its device
-    spans): ``body`` captured on ``stream`` into ``pool``, with the
-    timestamps of its device spans (``observability.graph_spans``), which
-    its executable runs only while tracing. The counters are left as they
-    were: nothing launched at capture."""
+    """(graph, ``body()``, its group): ``body`` captured on ``stream`` into
+    ``pool``, with the timestamps of its device spans and the counts noted
+    in it (``observability.graph_spans``); its executable runs the stamps
+    only while tracing."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.stream(stream):
         group = observability.graph_group()
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             with observability.graph_spans(group) as spans:
-                out, delta = native.launches_during(body)
+                out = body()
         except BaseException:
             try:
                 graph.capture_end()
@@ -266,8 +265,7 @@ def _capture(stream, pool, body):
         graph.capture_end()
     graph.instantiate()
     observability.instantiated(spans, graph.raw_cuda_graph_exec())
-    native.add_launches(delta, -1)
-    return graph, out, delta, spans
+    return graph, out, spans
 
 
 def _follow(entry):
@@ -304,10 +302,9 @@ class CompiledSample:
         self.stream = torch.cuda.Stream(dev)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = []     # prologue, then one per segment
-        self.launches = []   # per graph: {counter: launches per replay}
         self.outputs = []    # per graph: its (state, slot, flag)
         self.packs = None    # the prologue graph's packs, read by the rest
-        self.spans = []      # per graph: its device spans
+        self.spans = []      # per graph: its group (spans and counts)
         self.capture_s = None
         self._last_stream = None
 
@@ -342,9 +339,8 @@ class CompiledSample:
         return radiance, run
 
     def _capture(self, body):
-        graph, out, delta, spans = _capture(self.stream, self.pool, body)
+        graph, out, spans = _capture(self.stream, self.pool, body)
         self.graphs.append(graph)
-        self.launches.append(delta)
         self.outputs.append(out)
         self.spans.append(spans)
 
@@ -353,7 +349,6 @@ class CompiledSample:
         with observability.span("pbr.replay.segment" if i else
                                 "pbr.replay.prologue"):
             self.graphs[i].replay()
-        native.add_launches(self.launches[i])
         return self.outputs[i]
 
     def replay(self, seed, sample_idx, pixel_idx=None):
@@ -398,9 +393,8 @@ class CompiledGrad:
         self.stream = torch.cuda.Stream(device)
         self.counts = None   # segments per sample, as captured
         self.graph = None
-        self.launches = {}   # {counter: launches per replay}
         self.outputs = None  # the graph's (value, grads, tail flag or None)
-        self.spans = None    # the graph's device spans
+        self.spans = None    # the graph's group (spans and counts)
         self.camera_held = []   # tensors made here that the graph reads
         self.capture_s = None
         self._last_stream = None
@@ -449,7 +443,7 @@ class CompiledGrad:
             return out, out_grads, (torch.stack(tails).any() if tails
                                     else None)
         t0 = time.perf_counter()
-        self.graph, self.outputs, self.launches, self.spans = _capture(
+        self.graph, self.outputs, self.spans = _capture(
             self.stream, torch.cuda.graph_pool_handle(), body)
         self.capture_s = time.perf_counter() - t0
         self._last_stream = cur
@@ -469,7 +463,6 @@ class CompiledGrad:
             self.graph.replay()
             out = (None if value is None else value.clone(),
                    {k: g.clone() for k, g in grads.items()})
-        native.add_launches(self.launches)
         if defer:
             return (*out, None if tail is None else tail.clone())
         if tail is not None:
@@ -526,9 +519,13 @@ class _KeyedCache:
     def _captured(self, key, entry):
         self._entries[key] = entry
         self._entries.move_to_end(key)
+        self._count_capture(entry)
+        self._evict()
+
+    def _count_capture(self, entry):
         self.captures += 1
         self.capture_s += entry.capture_s
-        self._evict()
+        observability.count("captures")
 
     def _evict(self):
         while len(self._entries) > CACHE_SIZE:
@@ -688,9 +685,9 @@ class GradCache(_KeyedCache):
                     except BaseException:
                         self._drop(key)   # no graph left to replay
                         raise
-                    self.captures += 1
-                    self.capture_s += entry.capture_s
+                    self._count_capture(entry)
                     self.regrowths += 1
+                    observability.count("regrowths")
                 elif defer:
                     *out, tail = out
             value, grads = out

@@ -25,6 +25,7 @@ import torch
 
 from ..scene.scene import Geometry
 from ..ops.intersect import BIG, intersect_classic
+from ..utils import observability
 from ..utils.constants import EPS
 from . import native
 
@@ -105,11 +106,8 @@ def classic_in_order(geom: Geometry, ro, rd, t_lower, alive, perm=None):
 
 def intersect_dense_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
     """Plain torch version of the kernel: ``classic_in_order``, counted."""
-    intersect_dense_plain.launches += 1
+    observability.count("intersect_dense_plain")
     return classic_in_order(geom, ro, rd, t_lower, alive, perm)
-
-
-native.counted(intersect_dense_plain)
 
 
 def _tris_and_boxes(v0, e1, e2, chunk: int, n_chunks: int):
@@ -200,11 +198,8 @@ def intersect_dense(geom: Geometry, ro, rd, t_lower=None, alive=None,
         t.data_ptr(), u.data_ptr(), v.data_ptr(),
         torch.cuda.current_stream(ro.device).cuda_stream)
     native.check(err, "intersect_dense")
-    intersect_dense.launches += 1
+    observability.count("intersect_dense")
     if native.launch_records is not None:
         native.launch_records.append(("intersect_dense", {
             "n": N, "alive": alive, "n_tris": geom.num_triangles}))
     return hit, idx, t, u, v
-
-
-native.counted(intersect_dense)

@@ -38,6 +38,7 @@ from ..accel.native import build_bvh_auto
 from ..ops.intersect import (BIG, hit_tests, intersect_classic,
                              moller_trumbore)
 from ..scene.scene import Geometry
+from ..utils import observability
 from ..utils.constants import EPS
 from . import native
 from .intersect import check_query
@@ -66,7 +67,7 @@ def intersect_list_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
     over blocks of triangles in ``perm`` order (scene order when None),
     folded into a running (t, position) minimum. Only live lanes are
     computed."""
-    intersect_list_plain.launches += 1
+    observability.count("intersect_list_plain")
     N, T = ro.shape[0], geom.num_triangles
     dev = ro.device
     if perm is None:
@@ -106,9 +107,6 @@ def intersect_list_plain(geom: Geometry, ro, rd, t_lower, alive, perm=None):
     u[live] = torch.where(hit_l, best_u, 0.0)
     v[live] = torch.where(hit_l, best_v, 0.0)
     return hit, idx, t, u, v
-
-
-native.counted(intersect_list_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,7 +389,7 @@ def intersect_list(geom: Geometry, ro, rd, t_lower=None, alive=None,
     if ro.device.type != "cuda":
         raise ValueError(f"no intersect kernel for device {ro.device}")
     out = _launch("pbr_intersect_bvh", geom, ro, rd, t_lower, alive, accel, 0)
-    intersect_list.launches += 1
+    observability.count("intersect_list")
     if native.launch_records is not None:
         prep = _prepare(geom, accel)
         native.launch_records.append(("intersect_list", {
@@ -399,9 +397,6 @@ def intersect_list(geom: Geometry, ro, rd, t_lower=None, alive=None,
             "n_nodes": prep.bvh_nodes, "n_tris": geom.num_triangles,
             "leaf_size": prep.leaf_size}))
     return out
-
-
-native.counted(intersect_list)
 
 
 def intersect_list_stats(geom: Geometry, ro, rd, t_lower=None, alive=None,

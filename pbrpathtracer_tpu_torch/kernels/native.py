@@ -35,35 +35,6 @@ _lib = None
 # where it launches: ``utils.roofline.record_launches`` opens one
 launch_records = None
 
-# Every kernel wrapper and plain version that counts its launches on its
-# ``launches`` attribute, registered by ``counted`` where it is defined. A
-# captured sample (``engine/compiled.py``) runs the wrappers once, at
-# capture, where nothing launches: it takes back what they counted there
-# and adds it again at every replay, so the counters stay true.
-COUNTED = []
-
-
-def counted(fn):
-    """Register ``fn`` as a launch counter, starting at 0."""
-    fn.launches = 0
-    COUNTED.append(fn)
-    return fn
-
-
-def launches_during(call):
-    """(``call()``, {counter: launches it added}) over ``COUNTED``; only the
-    counters that moved are in the dict."""
-    before = [fn.launches for fn in COUNTED]
-    out = call()
-    return out, {fn: fn.launches - b for fn, b in zip(COUNTED, before)
-                 if fn.launches != b}
-
-
-def add_launches(delta, times: int = 1):
-    """Add ``times`` x ``delta`` ({counter: launches}) to the counters."""
-    for fn, n in delta.items():
-        fn.launches += times * n
-
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {

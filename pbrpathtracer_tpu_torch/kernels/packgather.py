@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from ..utils import observability
 from . import native
 
 # The largest table that the forward kernel stages in shared memory, its zero
@@ -111,27 +112,21 @@ def _device_stream(t):
 
 def gather_rows_t_plain(table, idx):
     """Plain torch version of the forward kernel."""
-    gather_rows_t_plain.launches += 1
+    observability.count("gather_rows_t_plain")
     T = table.shape[0]
     ok = (idx >= 0) & (idx < T)
     rows = table[torch.where(ok, idx, 0).long()]
     return torch.where(ok[:, None], rows, 0.0).T.contiguous()
 
 
-native.counted(gather_rows_t_plain)
-
-
 def gather_rows_t_bwd_plain(idx, cot, n_rows: int):
     """Plain torch version of the backward kernel: f32[T, W] zeros,
     ``index_add_`` of ``cot.T`` over the in-range ids."""
-    gather_rows_t_bwd_plain.launches += 1
+    observability.count("gather_rows_t_bwd_plain")
     ok = (idx >= 0) & (idx < n_rows)
     out = torch.zeros((n_rows, cot.shape[0]), dtype=torch.float32,
                       device=cot.device)
     return out.index_add_(0, idx[ok].long(), cot.T[ok])
-
-
-native.counted(gather_rows_t_bwd_plain)
 
 
 _fwd_launch = None   # the library's pbr_packgather_fwd, after its first load
@@ -139,7 +134,7 @@ _fwd_launch = None   # the library's pbr_packgather_fwd, after its first load
 
 def gather_rows_t_fwd(table, idx):
     """``gather_rows_t`` without a graph: the checks, then the kernel for
-    CUDA tensors (one launch, counted on ``gather_rows_t.launches``) or the
+    CUDA tensors (one launch, counted as ``gather_rows_t``) or the
     plain version for CPU tensors."""
     global _fwd_launch
     _check_inputs(table, idx)
@@ -157,7 +152,7 @@ def gather_rows_t_fwd(table, idx):
                       torch._C._cuda_getCurrentRawStream(idx.get_device()))
     if err:
         native.check(err, "gather_rows_t")
-    gather_rows_t.launches += 1
+    observability.count("gather_rows_t")
     if native.launch_records is not None:
         native.launch_records.append(("gather_rows_t", {
             "idx": idx, "n_rows": T, "width": W}))
@@ -193,14 +188,11 @@ def gather_rows_t_bwd(idx, cot, n_rows: int):
         BWD_CHUNK, plan.passes, scratch_i.data_ptr(), scratch_d.data_ptr(),
         out.data_ptr(), stream)
     native.check(err, "gather_rows_t_bwd")
-    gather_rows_t_bwd.launches += 1
+    observability.count("gather_rows_t_bwd")
     if native.launch_records is not None:
         native.launch_records.append(("gather_rows_t_bwd", {
             "n": N, "n_rows": n_rows, "width": W}))
     return out
-
-
-native.counted(gather_rows_t_bwd)
 
 
 class _GatherRowsT(torch.autograd.Function):
@@ -225,6 +217,3 @@ def gather_rows_t(table, idx):
     if torch.is_grad_enabled() and table.requires_grad:
         return _GatherRowsT.apply(table, idx)
     return gather_rows_t_fwd(table, idx)
-
-
-native.counted(gather_rows_t)

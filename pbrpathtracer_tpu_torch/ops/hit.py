@@ -20,8 +20,8 @@ of a query whose rays carry a graph:
 * "winner": the intersector runs inside an autograd Function whose backward
   is the winner's closed-form pullback (``ops/intersect_vjp.py``).
 * "autodiff": plain autograd through ``intersect_classic`` (never a kernel;
-  at most 2048 triangles), a debug baseline; ``autodiff_intersector.queries``
-  counts the queries that took it.
+  at most 2048 triangles), a debug baseline; the queries that take it are
+  counted as ``autodiff_queries`` (``utils/observability.py``).
 
 Under the last two the opacity re-trace's ``torch.where`` chain carries the
 gradient of (t, u, v). A query without a graph (a forward-only render, a
@@ -66,15 +66,11 @@ def interpolate_uv(scene: Scene, tri_idx, u, v):
 def autodiff_intersector(scene: Scene, ro, rd, t_lower, alive=None):
     """The dense route's function in plain torch, for autograd: what
     ``hit_vjp="autodiff"`` differentiates, on whatever device the scene
-    lies. It counts its queries (``autodiff_intersector.queries``), so that
-    a caller can tell how many ran in plain torch and that no other mode
-    ran any."""
-    autodiff_intersector.queries += 1
+    lies. It counts its queries (``autodiff_queries``), so that a caller
+    can tell how many ran in plain torch and that no other mode ran any."""
+    observability.count("autodiff_queries")
     perm = None if scene.accel is None else scene.accel.perm
     return classic_in_order(scene.geom, ro, rd, t_lower, alive, perm)
-
-
-autodiff_intersector.queries = 0
 
 
 def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,

@@ -22,6 +22,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from ..utils import observability
+
 RAYS_AXIS = "rays"
 
 
@@ -142,15 +144,16 @@ def all_reduce_flat(tensors, mesh: Mesh, async_op: bool = False) -> FlatReduce:
     sums only after the returned handle's ``wait()``; otherwise it has
     been waited for already.
 
-    ``all_reduce_flat.calls`` and ``.bytes`` count the calls and the bytes of
-    their buffers, as the kernels' wrappers count launches. The one-process
-    mesh counts too, and reduces nothing."""
+    The calls and the bytes of their buffers are counted as
+    ``all_reduces`` and ``all_reduce_bytes`` (``utils/observability.py``).
+    The one-process mesh counts too, and reduces nothing."""
     _need_group(mesh)
     tensors = list(tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("all_reduce_flat sums float32 tensors")
-    all_reduce_flat.calls += 1
-    all_reduce_flat.bytes += 4 * sum(t.numel() for t in tensors)
+    observability.count("all_reduces")
+    observability.count("all_reduce_bytes",
+                        4 * sum(t.numel() for t in tensors))
     if mesh.group is None:
         return FlatReduce(None, None, None, None)
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
@@ -162,6 +165,3 @@ def all_reduce_flat(tensors, mesh: Mesh, async_op: bool = False) -> FlatReduce:
         handle.wait()
     return handle
 
-
-all_reduce_flat.calls = 0
-all_reduce_flat.bytes = 0

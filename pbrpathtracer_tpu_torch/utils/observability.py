@@ -11,7 +11,7 @@ for runs over several processes, and a trace of the program's phases.
 
 **Tracing.** It is on while ``torch.profiler`` (or the autograd profiler)
 records, and inside ``tracing()``; otherwise a span costs one flag test and
-a shared no-op context, and no counter moves.
+a shared no-op context. The counts move either way.
 
 * ``span(name)``: a flat host phase (a graph replay, a copy into a graph's
   inputs, a blocking read, the update). Under the profiler it is a
@@ -37,29 +37,38 @@ a shared no-op context, and no counter moves.
   ``pbr.backward``. Where a graph replays more than once between two sync
   points (``render`` at ``spp`` > 1, ``step(n)``), its stamps hold the
   last replay's times, and each of those replays is given them.
-* Counters, while tracing: ``graph_launches`` (replays of captured graphs),
-  ``host_reads`` (the program's blocking reads: ``pbr.read.flag``,
-  ``pbr.read.tail``, ``pbr.read.loss``, ``pbr.sync.pass``),
+* Counts: one table of named counts, always on. ``count(name, n)`` is
+  the one way to note a count, and ``counted(fn)`` reads what a call
+  noted. The kernel wrappers and their plain versions count their launches
+  under their own names (``intersect_dense``, ``intersect_dense_plain``,
+  ``intersect_list``, ``gather_rows_t``, ``gather_rows_t_bwd`` and so on),
+  ``ops.hit.autodiff_intersector`` its queries (``autodiff_queries``) and
+  ``ops/shadepack`` its pack builds (``pack_builds``: one per pack a
+  sample, or per use where a caller hands none). The program counts
+  ``graph_launches`` (replays of captured graphs), ``host_reads`` (its
+  blocking reads: ``pbr.read.flag``, ``pbr.read.tail``, ``pbr.read.loss``,
+  ``pbr.sync.pass``), ``captures`` and ``regrowths`` (of the compiled
+  caches) and, of the segments that ``run_segments`` runs while reading
+  each flag (passes, eager samples; not the captured fwd+bwd's),
+  ``segments``, ``live_lanes`` (the lanes alive on entering each, from the
+  count that the flag read already brings) and ``segment_lanes`` (the
+  lanes those segments ran over, so ``live_lanes / segment_lanes`` is the
+  occupancy). A count noted while a graph is being captured goes to that
+  graph and not to the table; ``replaying`` adds the graph's counts, with
+  one ``graph_launches``, at each of its replays, which run the counted
+  work. A record's ``counts`` are the table's moves, over ``COUNTERS``,
+  from the record's start to its last ``call_done`` (or the end of
+  tracing), and ``calls`` the session passes and fit steps finished in it.
   ``dead_segments`` (segments a captured fwd+bwd ran over lanes that were
-  all dead, from the flags its graph keeps), ``captures`` and
-  ``regrowths`` (the compiled caches' own counts over the record), and
-  ``calls`` (finished session passes and fit steps). Of the segments that
-  ``run_segments`` runs while reading each flag (passes, eager samples;
-  not the captured fwd+bwd's): ``segments`` (segments run),
-  ``live_lanes`` (the lanes alive on entering each, from the count that
-  the flag read already brings) and ``segment_lanes`` (the lanes those
-  segments ran over, so ``live_lanes / segment_lanes`` is the occupancy).
-  ``pack_builds`` counts the builds of the shading packs
-  (``ops/shadepack``: one per pack a sample, or per use where a caller
-  hands none); a graph keeps the builds captured into it and adds them at
-  every replay (``count``).
+  all dead) alone is read while tracing, by ``settle()``, from the flags
+  the graph keeps.
   The record's ``tail_ms`` sums, over the replays of segment graphs entered
   with under ``TAIL_SHARE`` of their lanes alive, each graph's device time
   from its first stamp to its last (``pbr.graph``'s, nested spans
   included).
 
-A record starts at the first span after tracing turns on and gathers until
-it turns off; ``last_record()`` returns the newest.
+A record starts at the first span or count after tracing turns on and
+gathers until it turns off; ``last_record()`` returns the newest.
 """
 
 from __future__ import annotations
@@ -119,35 +128,17 @@ class StatusText:
 def wavefront_occupancy(scene, camera, cfg, sample_idx=0):
     """Live-lane count per bounce segment: the divergence diagnostic behind
     compaction and kernel tuning. Runs one sample on the scene's device
-    through the render's own queries and shading, every segment of
-    ``cfg.resolved_max_segments()``. Returns i64[num_segments] numpy."""
-    from ..ops import rng
-    from ..ops.camera import generate_rays
-    from ..ops.hit import closest_hit
-    from ..ops.shade import WavefrontState, shade_segment
-    from ..ops.shadepack import build_packs
-
-    dev = scene.device
-    packs = build_packs(scene)
-    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
-    seed = cfg.seed
-    ro, rd = generate_rays(camera.to(dev), cfg.width, cfg.height, seed,
-                           sample_idx, pix)
-    state = WavefrontState.initial(ro, rd, pix)
-    counts = []
-    for seg in range(cfg.resolved_max_segments()):
-        counts.append(state.alive.sum())
-        stream = rng.bounce_stream(seg)
-        hits = closest_hit(scene, cfg, state.ro, state.rd, seed, pix,
-                           sample_idx, stream, alive=state.alive,
-                           uv_pack=packs.uv_opacity)
-
-        def shadow_trace(p, l, sh_alive=None):
-            return closest_hit(scene, cfg, p, l, seed, pix, sample_idx,
-                               stream, slot_base=rng.SLOT_NEE_OPACITY_BASE,
-                               alive=sh_alive, uv_pack=packs.uv_opacity)
-        state = shade_segment(scene, cfg, state, *hits, seg, sample_idx,
-                              seed, shadow_trace, packs)
+    through the render's own plan (``ops.integrator.SamplePlan``), every
+    segment of ``cfg.resolved_max_segments()``, each segment's count being
+    the flag that the plan gives it. Returns i64[num_segments] numpy."""
+    from ..ops.integrator import SamplePlan
+    plan = SamplePlan(scene, camera, cfg.replace(skip_dead_segments=True),
+                      sample_idx)
+    state, slot, flag = plan.prologue()
+    counts = [flag]
+    for seg in range(plan.n_segments - 1):
+        state, slot, flag = plan.segment(seg, state, slot)
+        counts.append(flag)
     return torch.stack(counts).cpu().numpy()
 
 
@@ -187,6 +178,7 @@ def auto_resolution(base_width: int, base_height: int, aspect: float):
 
 # ---- tracing: the program's spans and counters (module docstring) ---------
 
+# the counts that a record holds (module docstring)
 COUNTERS = ("graph_launches", "host_reads", "dead_segments", "captures",
             "regrowths", "segments", "live_lanes", "segment_lanes",
             "pack_builds")
@@ -195,6 +187,8 @@ TAIL_SHARE = 0.1   # a segment entered with fewer live lanes is in the tail
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _local = threading.local()   # per thread: the open device-span group
+_table = {}                  # every count so far, by name
+_capturing = None            # the group of the graph being captured
 _forced = 0                  # open ``tracing()`` contexts
 _record = None               # the newest record
 _active = False              # whether spans still add to ``_record``
@@ -210,18 +204,17 @@ def on() -> bool:
 class _Record:
     def __init__(self):
         self.calls = 0
-        self.counts = dict.fromkeys(COUNTERS, 0)
+        self.table_from = self.table_to = dict(_table)
+        self.dead_segments = 0
         self.device_ms = collections.defaultdict(float)
         self.host_ms = collections.defaultdict(float)
         self.graph_gap_ms = 0.0
         self.tail_ms = 0.0
-        self.caches_from = self.caches_to = _cache_counts()
 
     def as_dict(self) -> dict:
-        counts = dict(self.counts)
-        for k, a, b in zip(("captures", "regrowths"), self.caches_from,
-                           self.caches_to):
-            counts[k] = b - a
+        counts = {k: self.table_to.get(k, 0) - self.table_from.get(k, 0)
+                  for k in COUNTERS}
+        counts["dead_segments"] = self.dead_segments
         return {"calls": self.calls, "counts": counts,
                 "device_ms": dict(self.device_ms),
                 "host_ms": dict(self.host_ms),
@@ -229,18 +222,9 @@ class _Record:
                 "tail_ms": self.tail_ms}
 
 
-def _cache_counts():
-    """(captures, regrowths) of the compiled caches so far."""
-    from ..engine import compiled
-    caches = (compiled.SAMPLES, compiled.GRADS, compiled.FUSED,
-              compiled.VJPS)
-    return (sum(c.captures for c in caches),
-            sum(getattr(c, "regrowths", 0) for c in caches))
-
-
 def _begin() -> _Record:
-    """The record that spans add to, a new one at the first span after
-    tracing turned on. Call under ``_lock``."""
+    """The record that spans and counts add to, a new one at the first
+    span or count after tracing turned on. Call under ``_lock``."""
     global _record, _active
     if not _active:
         _record, _active = _Record(), True
@@ -249,10 +233,10 @@ def _begin() -> _Record:
 
 
 def _refresh():
-    """Bring the record's cache counts up to now, while tracing is on."""
+    """Bring the record's counts up to now, while tracing is on."""
     if on():
         with _lock:
-            _begin().caches_to = _cache_counts()
+            _begin().table_to = dict(_table)
 
 
 def _close_if_off():
@@ -262,11 +246,10 @@ def _close_if_off():
 
 
 class _HostSpan:
-    __slots__ = ("name", "count", "_range", "_t0")
+    __slots__ = ("name", "_range", "_t0")
 
-    def __init__(self, name, count=None):
+    def __init__(self, name):
         self.name = name
-        self.count = count
 
     def __enter__(self):
         self._range = None
@@ -281,10 +264,7 @@ class _HostSpan:
         if self._range is not None:
             self._range.__exit__(*exc)
         with _lock:
-            rec = _begin()
-            rec.host_ms[self.name] += ms
-            if self.count is not None:
-                rec.counts[self.count] += 1
+            _begin().host_ms[self.name] += ms
         return False
 
 
@@ -295,26 +275,44 @@ def span(name: str):
     return _HostSpan(name)
 
 
-def count(name: str):
-    """One more of the counter ``name``, while tracing. Inside a graph
-    being captured the graph keeps it instead, tracing on or off, and
-    ``replaying`` adds it at every replay while tracing: the graph runs
-    the counted work at each replay, as a kernel wrapper's launch is
-    carried (``kernels/native.py``)."""
-    group = getattr(_local, "group", None)
-    if group is not None and group.graph:
-        group.counts[name] += 1
-    elif _profiler._is_profiler_enabled or _forced:
-        with _lock:
-            _begin().counts[name] += 1
+def count(name: str, n: int = 1):
+    """Note ``n`` more of ``name`` in the table (module docstring). While
+    a graph is being captured the graph keeps it instead, and ``replaying``
+    adds it at each of the graph's replays, which run the counted work."""
+    group = _capturing
+    if group is not None:
+        group.counts[name] += n
+    else:
+        _add((name, n))
+
+
+def _add(*counts):
+    """Add ``counts`` ((name, n) pairs) to the table, beginning a record
+    where tracing is on and none is open."""
+    with _lock:
+        if not _active and (_profiler._is_profiler_enabled or _forced):
+            _begin()
+        for name, n in counts:
+            _table[name] = _table.get(name, 0) + n
+
+
+def counted(fn):
+    """(``fn()``, {name: what the call added to the table}), with only the
+    names that moved."""
+    with _lock:
+        before = dict(_table)
+    out = fn()
+    with _lock:
+        after = dict(_table)
+    return out, {k: n - before.get(k, 0) for k, n in after.items()
+                 if n != before.get(k, 0)}
 
 
 def host_read(name: str):
-    """A host span around one of the program's blocking reads of the card,
-    counted in ``host_reads``."""
-    if not (_profiler._is_profiler_enabled or _forced):
-        return _NULL
-    return _HostSpan(name, "host_reads")
+    """One of the program's blocking reads of the card: counted in
+    ``host_reads``, and a host span around it."""
+    count("host_reads")
+    return span(name)
 
 
 STAMP_SLOTS = 64   # timestamps per device buffer of a group
@@ -331,7 +329,7 @@ class _Group:
     def __init__(self, graph: bool):
         self.graph = graph
         self.spans = []
-        self.counts = collections.Counter()   # a graph's, per replay
+        self.counts = collections.Counter()   # a graph's, noted at capture
         self.flags = []        # the flags entering each captured segment
         self.entered = None    # those flags stacked, a graph output
         self.replays = 0
@@ -461,18 +459,22 @@ def graph_spans(group: _Group):
     before it: collects the device spans of the graph being captured, under
     ``pbr.graph`` (its first and last node), and the flags that
     ``segment_entered`` notes, stacked into one graph output before the
-    last node. Yields ``group``, which ``instantiated`` and ``replaying``
-    take."""
+    last node; every count noted meanwhile, on any thread (autograd's device
+    thread runs a captured backward), goes to the group. Yields ``group``,
+    which ``instantiated`` and ``replaying`` take."""
+    global _capturing
     st = _thread()
     outer = st.group, st.stack
     group.spans.append(["pbr.graph", -1, group.stamp(), None])
     st.group, st.stack = group, [0]
+    _capturing = group
     try:
         yield group
         if group.flags:
             group.entered = torch.stack(group.flags)
         group.spans[0][3] = group.stamp()
     finally:
+        _capturing = None
         group.flags = []
         st.group, st.stack = outer
 
@@ -495,18 +497,16 @@ def segment_entered(flag):
 
 def segment_run(live, lanes: int):
     """Around one segment that ``run_segments`` runs, entered with ``live``
-    of its ``lanes`` alive (None where no flag was read): while tracing, the
-    segment and its lanes are counted, and a graph replayed inside is a
+    of its ``lanes`` alive (None where no flag was read): the segment and
+    its lanes are counted, and while tracing a graph replayed inside is a
     tail segment's where ``live`` is under ``TAIL_SHARE`` of ``lanes``. Off,
     the shared no-op context."""
+    if live is None:
+        _add(("segments", 1))
+    else:
+        _add(("segments", 1), ("live_lanes", live), ("segment_lanes", lanes))
     if not (_profiler._is_profiler_enabled or _forced):
         return _NULL
-    with _lock:
-        counts = _begin().counts
-        counts["segments"] += 1
-        if live is not None:
-            counts["live_lanes"] += live
-            counts["segment_lanes"] += lanes
     return _in_segment(live is not None and live < TAIL_SHARE * lanes)
 
 
@@ -520,21 +520,19 @@ def _in_segment(tail: bool):
 
 
 def replaying(group):
-    """Before a captured graph's replay: its stamps enabled while tracing,
-    and disabled otherwise; while tracing the replay is counted and its
-    spans queued for ``settle()``, marked where it runs a tail segment
-    (``segment_run``)."""
+    """Before a captured graph's replay: one ``graph_launches`` and the
+    counts the graph kept at its capture added to the table, the only place
+    they are; its stamps enabled while tracing, and disabled otherwise;
+    while tracing its spans are queued for ``settle()``, marked where it
+    runs a tail segment (``segment_run``)."""
     tracing_on = _profiler._is_profiler_enabled or _forced > 0
     if group.armed != tracing_on:
         _arm(group, tracing_on)
+    _add(("graph_launches", 1), *group.counts.items())
     if not tracing_on:
         return
     tail = getattr(_local, "tail", False)
     with _lock:
-        counts = _begin().counts
-        counts["graph_launches"] += 1
-        for name, n in group.counts.items():
-            counts[name] += n
         group.replays += 1
         _pending.append((group, group.replays, tail))
 
@@ -588,7 +586,7 @@ def _settle(rec, pending):
             rec.device_ms[name] += float(x)
         rec.graph_gap_ms += float(gap_ms)
         rec.tail_ms += float(tail_ms)
-        rec.counts["dead_segments"] += dead
+        rec.dead_segments += dead
 
 
 def call_done(n: int = 1):
@@ -602,13 +600,13 @@ def call_done(n: int = 1):
     with _lock:
         rec = _begin()
         rec.calls += n
-        rec.caches_to = _cache_counts()
+        rec.table_to = dict(_table)
 
 
 @contextlib.contextmanager
 def tracing():
     """Trace the block without the profiler: spans time themselves and the
-    counters count; ``last_record()`` reads them afterwards."""
+    record gathers the counts; ``last_record()`` reads them afterwards."""
     global _forced, _active
     with _lock:
         if not on():

@@ -27,9 +27,8 @@ from pbrpathtracer_tpu.engine.config import RenderConfig as JConfig
 from pbrpathtracer_tpu.ops import integrator as jint
 from pbrpathtracer_tpu.scene import big_scenes as jbs
 from pbrpathtracer_tpu_torch import RenderConfig, grad_render, render
-from pbrpathtracer_tpu_torch.kernels import intersect as KI
-from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
 from pbrpathtracer_tpu_torch.scene import big_scenes as pbs
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 CFG = dict(width=16, height=16, max_depth=3, spp=1, seed=0)
 
@@ -67,11 +66,10 @@ def test_render_matches_jax(scenes):
     js, ps = scenes
     ref = np.asarray(jax.jit(lambda: jint.render(
         js, jbs.mesh_scene_camera(), JConfig(**CFG)))())
-    dense, plain = KI.intersect_dense_plain.launches, \
-        KL.intersect_list_plain.launches
-    img = render(ps, pbs.mesh_scene_camera(), RenderConfig(**CFG)).numpy()
-    assert KI.intersect_dense_plain.launches == dense
-    assert KL.intersect_list_plain.launches > plain
+    img, moved = obs.counted(lambda: render(
+        ps, pbs.mesh_scene_camera(), RenderConfig(**CFG)).numpy())
+    assert moved.get("intersect_dense_plain", 0) == 0
+    assert moved["intersect_list_plain"] > 0
     assert np.isfinite(img).all() and img.max() > 0.05
     d = np.abs(img - ref).max(axis=-1)
     assert (d > 1e-3).mean() <= 0.005

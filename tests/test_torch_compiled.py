@@ -13,9 +13,9 @@ The CUDA graphs themselves need the card (tests/test_torch_gpu.py and
   it stood before the split, bit for bit: Cornell, the translucent scene
   behind a lens, the block pixel order, compaction by sort and by gather,
   a scene over 2048 triangles;
-* ``native.launches_during`` (the counts a capture keeps and takes back)
-  gives the counters' own deltas around an eager segment, plain versions
-  counting;
+* ``observability.counted`` gives the counts of an eager segment, plain
+  versions counting; captured, the segment's counts go to its graph and
+  each replay adds them; every kernel wrapper counts under its own name;
 * on the CPU no entry point reaches ``engine.compiled`` or constructs a
   ``torch.cuda.CUDAGraph``, and ``render`` and a session's passes equal the
   loop of ``render_sample`` that is the eager render on the card;
@@ -48,7 +48,6 @@ from pbrpathtracer_tpu_torch import (RenderConfig, RenderSession, api,
 from pbrpathtracer_tpu_torch.engine import compiled
 from pbrpathtracer_tpu_torch.kernels import intersect as KI
 from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
-from pbrpathtracer_tpu_torch.kernels import native
 from pbrpathtracer_tpu_torch.kernels import packgather as KP
 from pbrpathtracer_tpu_torch.ops import integrator as pint
 from pbrpathtracer_tpu_torch.ops.camera import generate_rays
@@ -58,6 +57,7 @@ from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
                                                       mesh_scene_camera)
 from pbrpathtracer_tpu_torch.scene.scene import Camera
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1), up=(0, 1, 0),
             fovy=61)
@@ -211,51 +211,71 @@ def test_block_order_is_made_once_per_device():
 
 # ---- counting ----------------------------------------------------------------
 
+def _in_graph(group, fn):
+    """``fn()`` with its counts noted as in a graph being captured."""
+    with obs.graph_spans(group):
+        return fn()
+
+
+def _cpu_group():
+    """A graph's group whose stamps need no card."""
+    group = obs._Group(graph=True)
+    group.stamp = lambda: 0
+    return group
+
+
 @pytest.mark.parametrize("name,counters", [
-    ("cornell_box", (KI.intersect_dense_plain, KP.gather_rows_t_plain)),
-    ("mesh3k", (KL.intersect_list_plain, KP.gather_rows_t_plain)),
+    ("cornell_box", ("intersect_dense_plain", "gather_rows_t_plain")),
+    ("mesh3k", ("intersect_list_plain", "gather_rows_t_plain")),
 ])
 def test_launch_deltas_of_a_segment(name, counters):
     scene, cam = _scene(name), _camera(name)
     cfg = RenderConfig(width=8, height=8, max_depth=2)
-    assert all(fn in native.COUNTED for fn in counters)
+    group = _cpu_group()
     with torch.inference_mode():
         plan = pint.SamplePlan(scene, cam, cfg, 0)
-        (state, slot, _), built = native.launches_during(plan.prologue)
-        before = {fn: fn.launches for fn in native.COUNTED}
-        out, delta = native.launches_during(
-            lambda: plan.segment(0, state, slot))
-    moved = {fn: fn.launches - n for fn, n in before.items()
-             if fn.launches != n}
-    assert delta == moved
+        (state, slot, _), built = obs.counted(plan.prologue)
+        out, delta = obs.counted(lambda: plan.segment(0, state, slot))
+        # what a capture does: the counts go to the graph, not the table
+        _, captured = obs.counted(
+            lambda: _in_graph(group, lambda: plan.segment(0, state, slot)))
     # one bounce query and one shadow query; one tri-pack and one
     # light-pack fetch and, on a textured scene, the five texture reads;
     # the tri pack's material join is the prologue's, which builds the
-    # packs of the sample
+    # packs of the sample (tri and light); no kernel wrapper on the CPU
     query, gather = counters
     reads = 5 if scene.has_any_texture else 0
-    assert {fn: delta[fn] for fn in counters} == {query: 2,
-                                                  gather: 2 + reads}
-    assert built == {gather: 1}
-    assert set(delta) == set(counters)   # no kernel wrapper on the CPU
-    after = {fn: fn.launches for fn in native.COUNTED}
-    native.add_launches(delta, -1)      # what a capture does
-    assert all(fn.launches == before[fn] for fn in native.COUNTED)
-    native.add_launches(delta, 3)       # three replays
-    assert all(fn.launches == before[fn] + 3 * delta.get(fn, 0)
-               for fn in native.COUNTED)
-    native.add_launches(delta, -2)
-    assert all(fn.launches == after[fn] for fn in native.COUNTED)
+    assert delta == {query: 2, gather: 2 + reads}
+    assert built == {gather: 1, "pack_builds": 2}
+    assert captured == {} and group.counts == delta
+    # three replays add the graph's counts three times, and three launches
+    _, replayed = obs.counted(lambda: [obs.replaying(group)
+                                       for _ in range(3)])
+    assert replayed == {"graph_launches": 3,
+                        **{k: 3 * n for k, n in delta.items()}}
     assert out[0].radiance.shape == (64, 3)
 
 
 def test_every_kernel_wrapper_is_a_registered_counter():
-    for fn in (KI.intersect_dense, KI.intersect_dense_plain,
-               KL.intersect_list, KL.intersect_list_plain, KP.gather_rows_t,
-               KP.gather_rows_t_plain, KP.gather_rows_t_bwd,
-               KP.gather_rows_t_bwd_plain):
-        assert fn in native.COUNTED and isinstance(fn.launches, int)
-    assert len(set(native.COUNTED)) == len(native.COUNTED)
+    """Each kernel wrapper counts its launch under its own name, and on
+    CPU tensors its plain version's (``intersect_dense_plain`` and so on),
+    once a call."""
+    dense, big = _scene("cornell_box"), _scene("mesh3k")
+    ro = torch.zeros((4, 3))
+    rd = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
+    table = torch.ones((6, 3))
+    idx = torch.tensor([0, 5, 7, -1], dtype=torch.int32)
+    calls = {
+        "intersect_dense": lambda: KI.intersect_dense(dense.geom, ro, rd),
+        "intersect_list": lambda: KL.intersect_list(big.geom, ro, rd,
+                                                    accel=big.accel),
+        "gather_rows_t": lambda: KP.gather_rows_t(table, idx),
+        "gather_rows_t_bwd": lambda: KP.gather_rows_t_bwd(
+            idx, torch.ones((3, 4)), 6),
+    }
+    for name, call in calls.items():
+        _, moved = obs.counted(call)
+        assert moved == {f"{name}_plain": 1}, name
 
 
 # ---- the CPU stays eager -----------------------------------------------------

@@ -16,6 +16,7 @@ double in a fixed order: it is held to an f64 reference at rtol 1e-6, atol
 (``index_add_`` with float atomics on the card) agrees to f32 round-off.
 """
 
+import collections
 import dataclasses
 import time
 
@@ -34,8 +35,25 @@ from pbrpathtracer_tpu_torch.ops.integrator import render_sample
 from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
                                                       mesh_scene_camera)
 from pbrpathtracer_tpu_torch.scene.scene import finalize_scene, pack_geometry
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 pytestmark = pytest.mark.gpu
+
+KERNELS = ("intersect_dense", "intersect_dense_plain", "intersect_list",
+           "intersect_list_plain", "gather_rows_t", "gather_rows_t_plain",
+           "gather_rows_t_bwd", "gather_rows_t_bwd_plain")
+
+
+def _ran(fn):
+    """(``fn()``, the launches it made by wrapper, 0 for the ones it did
+    not make), after the card has finished them."""
+    out, moved = obs.counted(fn)
+    torch.cuda.synchronize()
+    return out, _launches(moved)
+
+
+def _launches(counts):
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 POSE = dict(pos=(0.013, 0.021, 0.217), dir=(0.02, -0.03, 1), up=(0, 1, 0),
             fovy=61)
@@ -129,9 +147,9 @@ def test_intersect_kernel_prepares_once_per_geometry(dev):
     prep = a._k1_prepared[1]
     _assert_same(KI.intersect_dense(b, *rays),
                  KI.intersect_dense_plain(b, *rays))
-    before = KI.intersect_dense.launches
-    _assert_same(KI.intersect_dense(a, *rays), first)
-    assert KI.intersect_dense.launches == before + 1
+    again, ran = _ran(lambda: KI.intersect_dense(a, *rays))
+    _assert_same(again, first)
+    assert ran["intersect_dense"] == 1
     assert a._k1_prepared[1] is prep and b._k1_prepared[1] is not prep
 
 
@@ -222,15 +240,10 @@ def test_render_goes_through_the_kernels_only(dev):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=2, seed=1)
     scene = builders.cornell_box()
     assert scene.device.type == "cuda"   # the builders' default
-    counters = (KI.intersect_dense, KI.intersect_dense_plain,
-                KP.gather_rows_t, KP.gather_rows_t_plain)
-    for fn in counters:
-        fn.launches = 0
-    img = render(scene, Camera.make(**POSE), cfg)
-    torch.cuda.synchronize()
-    assert KI.intersect_dense.launches > 0 and KP.gather_rows_t.launches > 0
-    assert KI.intersect_dense_plain.launches == 0
-    assert KP.gather_rows_t_plain.launches == 0
+    img, ran = _ran(lambda: render(scene, Camera.make(**POSE), cfg))
+    assert ran["intersect_dense"] > 0 and ran["gather_rows_t"] > 0
+    assert ran["intersect_dense_plain"] == 0
+    assert ran["gather_rows_t_plain"] == 0
     # the same render on the CPU: identical up to knife-edge pixels, where an
     # ULP of difference between the CPU's and the card's sin/cos/sqrt can
     # flip a decision
@@ -303,10 +316,8 @@ def test_cuda_backward_never_reaches_the_plain_version(dev, monkeypatch):
     monkeypatch.setattr(KP, "gather_rows_t_bwd_plain", refuse)
     table = torch.randn((36, 55), device=dev, requires_grad=True)
     idx = torch.randint(0, 36, (4096,), dtype=torch.int32, device=dev)
-    before = KP.gather_rows_t_bwd.launches
-    KP.gather_rows_t(table, idx).sum().backward()
-    torch.cuda.synchronize()
-    assert KP.gather_rows_t_bwd.launches == before + 1
+    _, ran = _ran(lambda: KP.gather_rows_t(table, idx).sum().backward())
+    assert ran["gather_rows_t_bwd"] == 1
     counts = torch.bincount(idx.long(), minlength=36).float()
     torch.testing.assert_close(table.grad, counts[:, None].expand(36, 55),
                                rtol=0, atol=0)
@@ -316,19 +327,13 @@ def test_grad_render_goes_through_the_kernels_only(dev):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=1, seed=1)
     scene = builders.cornell_box()
     cam = Camera.make(**POSE)
-    counters = (KI.intersect_dense, KI.intersect_dense_plain,
-                KP.gather_rows_t, KP.gather_rows_t_plain,
-                KP.gather_rows_t_bwd, KP.gather_rows_t_bwd_plain)
-    for fn in counters:
-        fn.launches = 0
-    loss, grads = grad_render(scene, cam, cfg,
-                              torch.zeros((32, 32, 3), device=dev))
-    torch.cuda.synchronize()
-    assert KI.intersect_dense.launches > 0 and KP.gather_rows_t.launches > 0
-    assert KP.gather_rows_t_bwd.launches > 0
-    assert KI.intersect_dense_plain.launches == 0
-    assert KP.gather_rows_t_plain.launches == 0
-    assert KP.gather_rows_t_bwd_plain.launches == 0
+    (loss, grads), ran = _ran(lambda: grad_render(
+        scene, cam, cfg, torch.zeros((32, 32, 3), device=dev)))
+    assert ran["intersect_dense"] > 0 and ran["gather_rows_t"] > 0
+    assert ran["gather_rows_t_bwd"] > 0
+    assert ran["intersect_dense_plain"] == 0
+    assert ran["gather_rows_t_plain"] == 0
+    assert ran["gather_rows_t_bwd_plain"] == 0
     assert all(torch.isfinite(g).all() for g in grads.values())
     # the same gradients on the CPU, up to f32 round-off (knife-edge lanes
     # aside, none of which this image has measured)
@@ -449,9 +454,9 @@ def test_bvh_kernel_matches_the_plain_walk_and_its_counting_twin(dev, accel):
     rays = _scene_rays(21, 4096, dev)
     out, ref = _k4_both(scene, *rays)
     _assert_same(out, ref)
-    before = KL.intersect_list.launches
-    twin = KL.intersect_list_stats(scene.geom, *rays, accel=scene.accel)
-    assert KL.intersect_list.launches == before   # not a render-path launch
+    twin, ran = _ran(lambda: KL.intersect_list_stats(scene.geom, *rays,
+                                                     accel=scene.accel))
+    assert ran["intersect_list"] == 0   # not a render-path launch
     _assert_same(twin[:5], out)
     walk = KL.walk_plain(KL._prepare(scene.geom, scene.accel), *rays)
     _assert_same(walk[:5], out)
@@ -466,26 +471,20 @@ def test_cuda_queries_never_reach_the_list_plain_version(dev, monkeypatch):
     scene = mesh_scene(3000, accel="always")
     ro, rd, t_lower, alive = _scene_rays(1, 512, dev)
     monkeypatch.setattr(KL, "intersect_list_plain", refuse)
-    before = KL.intersect_list.launches
-    KL.intersect_list(scene.geom, ro, rd, t_lower, alive, accel=scene.accel)
-    assert KL.intersect_list.launches == before + 1
+    _, ran = _ran(lambda: KL.intersect_list(scene.geom, ro, rd, t_lower,
+                                            alive, accel=scene.accel))
+    assert ran["intersect_list"] == 1
 
 
 def test_large_scene_render_goes_through_k4_only(dev):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=1, seed=1)
     scene = mesh_scene(6000)
-    counters = (KI.intersect_dense, KI.intersect_dense_plain,
-                KL.intersect_list, KL.intersect_list_plain,
-                KP.gather_rows_t, KP.gather_rows_t_plain)
-    for fn in counters:
-        fn.launches = 0
-    img = render(scene, mesh_scene_camera(), cfg)
-    torch.cuda.synchronize()
-    assert KL.intersect_list.launches > 0 and KP.gather_rows_t.launches > 0
-    assert KI.intersect_dense.launches == 0
-    assert KI.intersect_dense_plain.launches == 0
-    assert KL.intersect_list_plain.launches == 0
-    assert KP.gather_rows_t_plain.launches == 0
+    img, ran = _ran(lambda: render(scene, mesh_scene_camera(), cfg))
+    assert ran["intersect_list"] > 0 and ran["gather_rows_t"] > 0
+    assert ran["intersect_dense"] == 0
+    assert ran["intersect_dense_plain"] == 0
+    assert ran["intersect_list_plain"] == 0
+    assert ran["gather_rows_t_plain"] == 0
     ref = render(scene.to("cpu"), mesh_scene_camera(), cfg)
     d = (img.cpu() - ref).abs().amax(dim=-1)
     assert (d > 1e-3).float().mean() <= 0.005
@@ -506,12 +505,6 @@ def test_reordered_renders_are_bit_identical_on_the_card(dev, mode, order):
 
 # ---- the application path on the card --------------------------------------
 
-def _counts():
-    return {f.__name__: f.launches for f in (
-        KI.intersect_dense, KI.intersect_dense_plain, KL.intersect_list,
-        KL.intersect_list_plain, KP.gather_rows_t, KP.gather_rows_t_plain)}
-
-
 @pytest.mark.parametrize("big", [False, True])
 def test_session_pause_resume_and_checkpoint_are_bit_exact(dev, tmp_path,
                                                            big):
@@ -526,30 +519,31 @@ def test_session_pause_resume_and_checkpoint_are_bit_exact(dev, tmp_path,
 
     def session():
         return RenderSession(scene=scene, camera=cam, cfg=cfg)
-    before = _counts()
-    a = session()
-    a.start()
-    assert a.step(2) == 2
-    a.save_checkpoint(str(tmp_path / "s.npz"))
-    a.pause()
-    assert a.step(3) == 0
-    a.resume()
-    a.step(2)
-    b = session()
-    b.start()
-    b.step(4)
-    assert a.accum.is_cuda and torch.equal(a.accum, b.accum)
-    c = session()
-    c.load_checkpoint(str(tmp_path / "s.npz"))
-    c.step(2)
-    assert torch.equal(c.accum, b.accum)
-    d = session()
-    d.target_samples = 4
-    d.run_async()
-    assert d.wait(timeout=120) and d.state == RenderState.PAUSED
-    assert torch.equal(d.accum, b.accum)
-    after = _counts()
-    ran = {k: after[k] - before[k] for k in after}
+
+    def sessions():
+        a = session()
+        a.start()
+        assert a.step(2) == 2
+        a.save_checkpoint(str(tmp_path / "s.npz"))
+        a.pause()
+        assert a.step(3) == 0
+        a.resume()
+        a.step(2)
+        b = session()
+        b.start()
+        b.step(4)
+        assert a.accum.is_cuda and torch.equal(a.accum, b.accum)
+        c = session()
+        c.load_checkpoint(str(tmp_path / "s.npz"))
+        c.step(2)
+        assert torch.equal(c.accum, b.accum)
+        d = session()
+        d.target_samples = 4
+        d.run_async()
+        assert d.wait(timeout=120) and d.state == RenderState.PAUSED
+        assert torch.equal(d.accum, b.accum)
+        return b
+    b, ran = _ran(sessions)
     route, other = (("intersect_list", "intersect_dense") if big
                     else ("intersect_dense", "intersect_list"))
     assert ran[route] > 0 and ran["gather_rows_t"] > 0 and ran[other] == 0
@@ -572,10 +566,8 @@ def test_preview_on_the_card_equals_the_cpu(dev, name):
              "mesh3k": lambda: mesh_scene(3000)}[name]()
     cam = (mesh_scene_camera() if name == "mesh3k"
            else Camera.make(**POSE)).to(dev)
-    before = _counts()
-    color, oid, eid = preview_render(scene, cam, 96, 96, selected=(0, 1))
-    after = _counts()
-    ran = {k: after[k] - before[k] for k in after}
+    (color, oid, eid), ran = _ran(
+        lambda: preview_render(scene, cam, 96, 96, selected=(0, 1)))
     expect = {"translucent": ("intersect_dense", 5),
               "cornell": ("intersect_dense", 1),
               "mesh3k": ("intersect_list", 1)}[name]
@@ -626,14 +618,15 @@ def test_editor_scene_and_cli_default_to_the_card(dev, tmp_path):
     assert ed.tracer_camera().pos.is_cuda
     pts = str(tmp_path / "box.pts")
     save_pts(pts, ed, {"trace_depth": 2, "width": 64, "height": 64})
-    before = _counts()
-    img, _, _ = render_pts(pts, spp=2)
-    assert img.is_cuda and float(img.max()) > 0.1
     out = str(tmp_path / "box.png")
-    cli.main(["render", pts, "-o", out, "--spp", "2"])
-    after = _counts()
-    assert after["intersect_dense"] > before["intersect_dense"]
-    assert after["intersect_dense_plain"] == before["intersect_dense_plain"]
+
+    def both():
+        img, _, _ = render_pts(pts, spp=2)
+        assert img.is_cuda and float(img.max()) > 0.1
+        cli.main(["render", pts, "-o", out, "--spp", "2"])
+    _, ran = _ran(both)
+    assert ran["intersect_dense"] > 0
+    assert ran["intersect_dense_plain"] == 0
     assert read_png(out).shape == (64, 64, 4)
 
 
@@ -678,18 +671,19 @@ def test_custom_vjp_over_the_kernels_equals_it_over_the_plain_versions(
     cots = torch.tensor(np.random.RandomState(1).normal(size=(3, 20_000)),
                         dtype=torch.float32, device=dev)
     out = {}
-    counters = {"K1": KI.intersect_dense, "K4": KL.intersect_list}
+    counters = {"K1": "intersect_dense", "K4": "intersect_list"}
     for name, fn in (("kernel", default_intersector),
                      ("plain", _plain_intersector)):
         a = ro.clone().requires_grad_(True)
         b = rd.clone().requires_grad_(True)
-        before = counters[route].launches, KP.gather_rows_t.launches
-        hit, idx, t, u, v = with_custom_vjp(fn)(scene, a, b, t_lower,
-                                                alive=alive)
-        loss = (t * cots[0] + u * cots[1] + v * cots[2]).sum()
-        grads = torch.autograd.grad(loss, [a, b])
-        launched = (counters[route].launches - before[0],
-                    KP.gather_rows_t.launches - before[1])
+
+        def query_and_grads():
+            hit, idx, t, u, v = with_custom_vjp(fn)(scene, a, b, t_lower,
+                                                    alive=alive)
+            loss = (t * cots[0] + u * cots[1] + v * cots[2]).sum()
+            return (hit, idx, t, u, v), torch.autograd.grad(loss, [a, b])
+        ((hit, idx, t, u, v), grads), ran = _ran(query_and_grads)
+        launched = (ran[counters[route]], ran["gather_rows_t"])
         assert launched == ((1, 1) if name == "kernel" else (0, 1))
         out[name] = (hit, idx, t, u, v, *grads)
     _assert_same(out["kernel"], out["plain"])
@@ -703,12 +697,9 @@ def test_hit_vjp_modes_give_the_recompute_gradients_on_the_card(dev, mode):
     cfg = RenderConfig(width=32, height=32, max_depth=3, spp=2, seed=3)
     target = render(scene, cam, cfg) * 0.8
     ref_loss, ref = grad_render(scene, cam, cfg, target, camera_lens=True)
-    before = (KI.intersect_dense_plain.launches,
-              KP.gather_rows_t_plain.launches)
-    loss, grads = grad_render(scene, cam, cfg.replace(hit_vjp=mode), target,
-                              camera_lens=True)
-    assert before == (KI.intersect_dense_plain.launches,
-                      KP.gather_rows_t_plain.launches)
+    (loss, grads), ran = _ran(lambda: grad_render(
+        scene, cam, cfg.replace(hit_vjp=mode), target, camera_lens=True))
+    assert ran["intersect_dense_plain"] == ran["gather_rows_t_plain"] == 0
     assert float(loss) == float(ref_loss)
     for k in ref:
         torch.testing.assert_close(grads[k], ref[k], rtol=1e-4, atol=1e-8)
@@ -733,13 +724,12 @@ def test_sharded_render_and_step_on_the_card_without_a_group(dev):
     params = broadcast_params(get_params(scene, cam), mesh)
     step = make_train_step(scene, cam, cfg,
                            functools.partial(torch.optim.Adam, lr=1e-2), mesh)
-    counters = (KI.intersect_dense, KP.gather_rows_t, KP.gather_rows_t_bwd)
-    before = [f.launches for f in counters]
-    loss = step(params,
-                torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev),
-                torch.zeros((cfg.num_pixels, 3), device=dev), 0)
+    loss, ran = _ran(lambda: step(
+        params, torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev),
+        torch.zeros((cfg.num_pixels, 3), device=dev), 0))
     assert torch.isfinite(loss)
-    assert all(f.launches > b for f, b in zip(counters, before))
+    assert all(ran[k] > 0 for k in ("intersect_dense", "gather_rows_t",
+                                    "gather_rows_t_bwd"))
 
 
 # ---- the compiled forward: captured samples against the eager render -------
@@ -820,7 +810,6 @@ def test_compiled_results_are_fresh_tensors(dev):
 
 def test_compiled_counters_advance_by_the_captured_launches(dev):
     from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
-    from pbrpathtracer_tpu_torch.kernels import native
     for name in ("cornell", "mesh3k"):
         scene, cam, cfg = _compiled_case(name, dev)
         one = cfg.replace(spp=1)
@@ -828,21 +817,15 @@ def test_compiled_counters_advance_by_the_captured_launches(dev):
         render(scene, cam, one)                     # captured here
         entry = SAMPLES.entry(scene, cam, one)
         assert len(entry.graphs) == entry.n_segments + 1
-        before = {f: f.launches for f in native.COUNTED}
-        eager_render(scene, cam, one)
-        eager = {f: f.launches - n for f, n in before.items()}
-        before = {f: f.launches for f in native.COUNTED}
-        render(scene, cam, one)
-        torch.cuda.synchronize()
-        replay = {f: f.launches - n for f, n in before.items()}
+        _, eager = _ran(lambda: eager_render(scene, cam, one))
+        _, replay = _ran(lambda: render(scene, cam, one))
         assert replay == eager
-        route = KL.intersect_list if name == "mesh3k" else KI.intersect_dense
-        assert replay[route] > 0 and replay[KP.gather_rows_t] > 0
-        assert all(n == 0 for f, n in replay.items()
-                   if f.__name__.endswith("_plain"))
+        route = "intersect_list" if name == "mesh3k" else "intersect_dense"
+        assert replay[route] > 0 and replay["gather_rows_t"] > 0
+        assert all(n == 0 for k, n in replay.items() if k.endswith("_plain"))
         # the counts are those of the graphs replayed: a prefix of them
-        prefixes = [{f: sum(d.get(f, 0) for d in entry.launches[:k])
-                     for f in native.COUNTED}
+        prefixes = [_launches(sum((g.counts for g in entry.spans[:k]),
+                                  collections.Counter()))
                     for k in range(1, len(entry.graphs) + 1)]
         assert replay in prefixes
 
@@ -858,7 +841,6 @@ def test_a_captured_session_builds_its_packs_in_the_prologue(dev):
     traced replay counts two pack builds a pass."""
     from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
     from pbrpathtracer_tpu_torch.engine.session import RenderSession
-    from pbrpathtracer_tpu_torch.utils import observability as obs
     scene, cam, cfg = _compiled_case("cornell", dev)
     cfg = cfg.replace(spp=1)
     s = RenderSession(scene=scene, camera=cam, cfg=cfg, device=dev)
@@ -866,8 +848,8 @@ def test_a_captured_session_builds_its_packs_in_the_prologue(dev):
     s.step(2)                                   # eager, then captured
     entry = SAMPLES.entry(scene, cam, cfg)
     assert entry is not None and entry.packs.uv_opacity is None
-    assert entry.launches[0].get(KP.gather_rows_t, 0) == 1
-    assert [d.get(KP.gather_rows_t, 0) for d in entry.launches[1:]] == \
+    assert entry.spans[0].counts["gather_rows_t"] == 1
+    assert [g.counts["gather_rows_t"] for g in entry.spans[1:]] == \
         [2] * entry.n_segments
     held = []
     other, other_cam, other_cfg = _compiled_case("translucent", dev)
@@ -994,7 +976,6 @@ def test_compiled_grad_equals_eager_bit_for_bit(dev, mode):
 def test_compiled_grad_launches_equal_eager(dev, name):
     """K1 or K4, K2 and K3 by replay, counted as the graph launched them:
     what the eager fwd+bwd launches."""
-    from pbrpathtracer_tpu_torch.kernels import native
     scene, cam, cfg = _compiled_case(name, dev)
     cfg = cfg.replace(spp=1)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
@@ -1002,16 +983,13 @@ def test_compiled_grad_launches_equal_eager(dev, name):
     grad_render(scene, cam, cfg, target)      # captured here
     counts = {}
     for key, fn in (("eager", _eager_grad), ("replay", grad_render)):
-        before = {f: f.launches for f in native.COUNTED}
-        fn(scene, cam, cfg, target)
-        torch.cuda.synchronize()
-        counts[key] = {f: f.launches - n for f, n in before.items()}
+        _, counts[key] = _ran(lambda: fn(scene, cam, cfg, target))
     assert counts["replay"] == counts["eager"]
-    route = KL.intersect_list if name == "mesh3k" else KI.intersect_dense
-    for f in (route, KP.gather_rows_t, KP.gather_rows_t_bwd):
-        assert counts["replay"][f] > 0
-    assert all(n == 0 for f, n in counts["replay"].items()
-               if f.__name__.endswith("_plain"))
+    route = "intersect_list" if name == "mesh3k" else "intersect_dense"
+    for k in (route, "gather_rows_t", "gather_rows_t_bwd"):
+        assert counts["replay"][k] > 0
+    assert all(n == 0 for k, n in counts["replay"].items()
+               if k.endswith("_plain"))
 
 
 def test_compiled_grad_regrows_on_the_translucent_scene(dev):
@@ -1201,8 +1179,6 @@ def test_compiled_steps_equal_the_eager_steps(dev, kind):
     update saw and the parameters after it equal the eager step's bit for
     bit, with the same launches and all-reduces."""
     from pbrpathtracer_tpu_torch.engine.compiled import FUSED, SAMPLES, VJPS
-    from pbrpathtracer_tpu_torch.kernels import native
-    from pbrpathtracer_tpu_torch.parallel.mesh import all_reduce_flat
     from pbrpathtracer_tpu_torch.parallel.render import (
         make_train_step, make_train_step_overlapped)
     over = kind.startswith("overlapped")
@@ -1216,12 +1192,9 @@ def test_compiled_steps_equal_the_eager_steps(dev, kind):
     for i, seed in enumerate((0, 0, 0, 5)):
         got = {}
         for key, fn in (("eager", eager), ("compiled", compiled)):
-            before = {f: f.launches for f in native.COUNTED}
-            all_reduce_flat.calls = 0
-            got[key] = fn(seed)
+            got[key], moved = obs.counted(lambda: fn(seed))
             torch.cuda.synchronize()
-            counted[key] = ({f: f.launches - n for f, n in before.items()},
-                            all_reduce_flat.calls)
+            counted[key] = (_launches(moved), moved.get("all_reduces", 0))
         assert all(torch.equal(a, b)
                    for a, b in zip(got["eager"], got["compiled"])), (i, seed)
         if i == 1:
@@ -1238,7 +1211,6 @@ def test_a_failed_step_capture_raises(dev, monkeypatch):
     and update, and caches no graph."""
     from pbrpathtracer_tpu_torch.engine.compiled import FUSED
     from pbrpathtracer_tpu_torch.ops import integrator as pint
-    from pbrpathtracer_tpu_torch.parallel.mesh import all_reduce_flat
     from pbrpathtracer_tpu_torch.parallel.render import make_train_step
     cfg = RenderConfig(width=32, height=32, max_depth=2, spp=1, seed=2)
     _, compiled = _sharded_steps(dev, make_train_step, cfg)
@@ -1250,10 +1222,13 @@ def test_a_failed_step_capture_raises(dev, monkeypatch):
         return out
     monkeypatch.setattr(pint, "shade_segment", reads_back)
     compiled(0)                               # eager: the key noted
-    captures, calls, held = FUSED.captures, all_reduce_flat.calls, len(FUSED)
-    with pytest.raises(RuntimeError):
-        compiled(0)
-    assert FUSED.captures == captures and all_reduce_flat.calls == calls
+    captures, held = FUSED.captures, len(FUSED)
+
+    def refused():
+        with pytest.raises(RuntimeError):
+            compiled(0)
+    _, moved = obs.counted(refused)
+    assert FUSED.captures == captures and "all_reduces" not in moved
     assert len(FUSED) == held
 
 
@@ -1325,10 +1300,8 @@ def test_texture_and_material_gradients_are_k3_sums(dev, case):
         first = DIFFUSE.start
         ref = _f64_sums(scene.geom.mat_id, cot[:, first:first + 14],
                         m.num_materials)
-    before = KP.gather_rows_t_bwd.launches
-    a, b = grad(), grad()
-    torch.cuda.synchronize()
-    assert KP.gather_rows_t_bwd.launches == before + 2
+    (a, b), ran = _ran(lambda: (grad(), grad()))
+    assert ran["gather_rows_t_bwd"] == 2
     assert torch.equal(a, b)
     torch.testing.assert_close(a.double(), ref, rtol=1e-6, atol=1e-9)
 
@@ -1384,7 +1357,7 @@ def test_captured_textured_fwd_bwd_runs_no_index_backward(dev):
 
 def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
         dev, monkeypatch):
-    """``gather_rows_t_bwd.launches`` over one fwd+bwd of a textured scene,
+    """``gather_rows_t_bwd``'s launches over one fwd+bwd of a textured scene,
     eager and replayed: one per pack fetch (tri pack W = 55, light pack
     W = 13), one per tri-pack build (its material join, W = 21: one a
     sample, the segments' cotangents of the pack summed first) and one per
@@ -1408,10 +1381,8 @@ def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
         return out
     monkeypatch.setattr(shade, "sample_texture", watched)
     with record_launches() as records:
-        before = KP.gather_rows_t_bwd.launches
-        _eager_grad(scene, cam, cfg, target, **sel)
-        torch.cuda.synchronize()
-        eager = KP.gather_rows_t_bwd.launches - before
+        _, ran = _ran(lambda: _eager_grad(scene, cam, cfg, target, **sel))
+        eager = ran["gather_rows_t_bwd"]
     monkeypatch.undo()
     widths = Counter(shapes["width"] for kernel, shapes in records
                      if kernel == "gather_rows_t_bwd")
@@ -1423,10 +1394,8 @@ def test_k3_launches_per_step_are_fetches_texture_reads_and_tri_builds(
     assert eager == sum(widths.values())
     grad_render(scene, cam, cfg, target, **sel)
     grad_render(scene, cam, cfg, target, **sel)       # captured here
-    before = KP.gather_rows_t_bwd.launches
-    grad_render(scene, cam, cfg, target, **sel)
-    torch.cuda.synchronize()
-    assert KP.gather_rows_t_bwd.launches - before == eager
+    _, ran = _ran(lambda: grad_render(scene, cam, cfg, target, **sel))
+    assert ran["gather_rows_t_bwd"] == eager
 
 
 EDITS = """

@@ -46,8 +46,6 @@ from pbrpathtracer_tpu_torch import (RenderConfig, get_params, grad_render,
                                      l2_image_loss, render)
 from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.diff.loss import finite_difference_grad
-from pbrpathtracer_tpu_torch.kernels import intersect as KI
-from pbrpathtracer_tpu_torch.ops import hit as phit
 from pbrpathtracer_tpu_torch.ops.hit import default_intersector
 from pbrpathtracer_tpu_torch.ops.intersect_vjp import with_custom_vjp
 from pbrpathtracer_tpu_torch.scene import builders as pb
@@ -55,6 +53,7 @@ from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
                                                       mesh_scene_camera)
 from pbrpathtracer_tpu_torch.scene.scene import (Camera, finalize_scene,
                                                  pack_textures)
+from pbrpathtracer_tpu_torch.utils import observability as obs
 from pbrpathtracer_tpu_torch.utils.constants import TEX_OPACITY
 
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -96,10 +95,9 @@ def test_with_custom_vjp_matches_jax(name):
     tro = torch.tensor(ro, requires_grad=True)
     trd = torch.tensor(rd, requires_grad=True)
     fn = with_custom_vjp(default_intersector)
-    before = KI.intersect_dense_plain.launches
-    hit, idx, t, u, v = fn(ps, tro, trd, torch.tensor(t_lower),
-                           alive=torch.tensor(alive))
-    assert KI.intersect_dense_plain.launches == before + 1
+    (hit, idx, t, u, v), moved = obs.counted(lambda: fn(
+        ps, tro, trd, torch.tensor(t_lower), alive=torch.tensor(alive)))
+    assert moved == {"intersect_dense_plain": 1}
     assert not hit.requires_grad and not idx.requires_grad
     # Where two surfaces share a plane (the glass box stands on the floor)
     # an ulp decides the winner, and XLA's and torch's CPU kernels may differ
@@ -251,28 +249,27 @@ def test_opacity_retrace_carries_the_gradient(mode):
 # ---- routes -----------------------------------------------------------------
 
 def test_autodiff_differentiates_the_classic_intersector():
-    """Under a graph "autodiff" takes ``autodiff_intersector`` (counted in
-    its ``queries``) and no kernel's wrapper, not even the plain version's,
-    whose counter stays; shadow queries and rays without a graph take the
-    default route as always, and no other mode takes it at all."""
-    auto = phit.autodiff_intersector
+    """Under a graph "autodiff" takes ``autodiff_intersector`` (counted as
+    ``autodiff_queries``) and no kernel's wrapper, not even the plain
+    version's, whose count stays; shadow queries and rays without a graph
+    take the default route as always, and no other mode takes it at all."""
     scene, cam, cfg, target = _setup("cornell_box", 2, size=8, spp=1)
-    before = auto.queries, KI.intersect_dense_plain.launches
-    grad_render(scene, cam, cfg.replace(hit_vjp="autodiff"), target,
-                materials=False, camera_lens=True)
-    n_auto = auto.queries - before[0]
-    n_default = KI.intersect_dense_plain.launches - before[1]
+
+    def queries(mode, call=grad_render):
+        def run():
+            if call is render:
+                return render(scene, cam, cfg.replace(hit_vjp=mode))
+            return grad_render(scene, cam, cfg.replace(hit_vjp=mode), target,
+                               materials=False, camera_lens=True)
+        _, moved = obs.counted(run)
+        return (moved.get("autodiff_queries", 0),
+                moved.get("intersect_dense_plain", 0))
+    n_auto, n_default = queries("autodiff")
     assert n_auto > 0 and n_default > 0      # primary/bounce, then shadow
     for mode in ("winner", "recompute"):
-        before = auto.queries, KI.intersect_dense_plain.launches
-        grad_render(scene, cam, cfg.replace(hit_vjp=mode), target,
-                    materials=False, camera_lens=True)
-        assert auto.queries == before[0]
-        assert (KI.intersect_dense_plain.launches - before[1]
-                == n_auto + n_default)
-    before = auto.queries
-    render(scene, cam, cfg.replace(hit_vjp="autodiff"))
-    assert auto.queries == before            # forward only: the default route
+        assert queries(mode) == (0, n_auto + n_default)
+    # forward only: the default route
+    assert queries("autodiff", render)[0] == 0
 
 
 def test_autodiff_raises_on_a_bvh_route_scene():
@@ -299,8 +296,9 @@ def test_forward_render_is_bit_equal_in_every_mode(name):
     cfg = RenderConfig(width=12, height=12, max_depth=3, spp=2, seed=5)
     imgs, launches = [], []
     for mode in MODES:
-        before = KI.intersect_dense_plain.launches
-        imgs.append(render(scene, cam, cfg.replace(hit_vjp=mode)))
-        launches.append(KI.intersect_dense_plain.launches - before)
+        img, moved = obs.counted(
+            lambda: render(scene, cam, cfg.replace(hit_vjp=mode)))
+        imgs.append(img)
+        launches.append(moved["intersect_dense_plain"])
     assert torch.equal(imgs[0], imgs[1]) and torch.equal(imgs[0], imgs[2])
     assert launches[0] > 0 and launches == [launches[0]] * 3

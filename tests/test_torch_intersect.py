@@ -28,6 +28,7 @@ from pbrpathtracer_tpu.scene.scene import pack_geometry as j_pack_geometry
 from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.kernels import intersect as K
 from pbrpathtracer_tpu_torch.scene.scene import pack_geometry
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -154,10 +155,9 @@ def test_perm_maps_ids_back_to_scene_order():
 def test_cpu_tensors_take_the_plain_version():
     ps, _ = from_reference(jb.cornell_box())
     ro, rd, t_lower, alive = (torch.tensor(x) for x in _rays(3, 64))
-    kernel, plain = K.intersect_dense.launches, K.intersect_dense_plain.launches
-    K.intersect_dense(ps.geom, ro, rd, t_lower, alive)
-    assert K.intersect_dense.launches == kernel
-    assert K.intersect_dense_plain.launches == plain + 1
+    _, moved = obs.counted(
+        lambda: K.intersect_dense(ps.geom, ro, rd, t_lower, alive))
+    assert moved == {"intersect_dense_plain": 1}
 
 
 def test_wrapper_rejects_bad_inputs():

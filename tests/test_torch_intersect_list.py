@@ -36,6 +36,7 @@ from pbrpathtracer_tpu_torch.accel.native import (build_bvh_auto,
 from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
 from pbrpathtracer_tpu_torch.ops.hit import default_intersector
 from pbrpathtracer_tpu_torch.ops.intersect import hit_tests, moller_trumbore
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -95,10 +96,10 @@ def _jax_list(js, ro, rd, t_lower, alive):
 
 
 def _port(ps, ro, rd, t_lower, alive):
-    before = KL.intersect_list_plain.launches
-    out = default_intersector(ps, torch.tensor(ro), torch.tensor(rd),
-                              torch.tensor(t_lower), torch.tensor(alive))
-    assert KL.intersect_list_plain.launches == before + 1
+    out, moved = obs.counted(lambda: default_intersector(
+        ps, torch.tensor(ro), torch.tensor(rd), torch.tensor(t_lower),
+        torch.tensor(alive)))
+    assert moved == {"intersect_list_plain": 1}
     return [x.numpy() for x in out]
 
 
@@ -188,10 +189,9 @@ def test_ties_go_to_the_lowest_position():
 def test_cpu_tensors_take_the_plain_version():
     ps, _ = from_reference(j_mesh_scene(3000, textured=False, accel="always"))
     ro, rd = (torch.tensor(x) for x in _rays(16, seed=8))
-    kernel, plain = KL.intersect_list.launches, KL.intersect_list_plain.launches
-    KL.intersect_list(ps.geom, ro, rd, accel=ps.accel)
-    assert KL.intersect_list.launches == kernel
-    assert KL.intersect_list_plain.launches == plain + 1
+    _, moved = obs.counted(
+        lambda: KL.intersect_list(ps.geom, ro, rd, accel=ps.accel))
+    assert moved == {"intersect_list_plain": 1}
 
 
 def test_counting_twin_refuses_cpu_tensors():

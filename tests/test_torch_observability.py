@@ -6,7 +6,8 @@ is made; under ``torch.profiler`` the ``pbr.*`` spans of an eager pass and
 an eager fit step appear, none over a whole call; tracing changes no result
 bit; the counters equal the eager loop's own reads and calls; ``settle``
 keeps exclusive times and the tail segments' graph time; the segment
-counters count what the flags read. On the card (``gpu``, skipped without
+counters count what the flags read; a count noted in a graph being captured
+reaches the table at each replay, never at the capture. On the card (``gpu``, skipped without
 one): the captured graphs carry their spans' events, a replay still equals
 the eager program bit for bit and in launches, the device spans sum to no
 more than the device's own time, a regrown fwd+bwd counts its capture, its
@@ -19,6 +20,7 @@ This file imports no JAX; on the card:
     python -m pytest --noconftest tests/test_torch_observability.py -q
 """
 
+import collections
 import time
 import types
 
@@ -69,6 +71,12 @@ def _reads(runs, n_segments):
     """The eager loop's flag reads of samples that ran ``runs`` segments:
     one before each segment run, and the one that stopped it."""
     return sum(min(r + 1, n_segments) for r in runs)
+
+
+def _launches(counts):
+    """The kernel launches among ``counts``, by wrapper."""
+    return {k: n for k, n in counts.items()
+            if k.startswith(("intersect", "gather"))}
 
 
 def _eager_runs(cfg, sample_indices, seed=None):
@@ -293,6 +301,28 @@ def test_settle_sums_the_tail_segments_graphs():
         "dead_segments": 2, "graph_launches": 4}
 
 
+def test_a_count_in_a_captured_graph_reaches_the_table_at_each_replay():
+    """With tracing off, what is counted while a graph is captured goes to
+    the graph and never to the table, and reaches the table once at each of
+    the graph's replays, beside one graph launch; nothing is recorded."""
+    g = obs._Group(graph=True)
+    g.stamp = lambda: 0               # no card: the stamps are not taken
+
+    def capture():
+        with obs.graph_spans(g):
+            obs.count("pack_builds", 2)
+            obs.count("intersect_dense")
+    _, at_capture = obs.counted(capture)
+    assert at_capture == {}
+    assert g.counts == {"pack_builds": 2, "intersect_dense": 1}
+    _, replays = obs.counted(lambda: [obs.replaying(g) for _ in range(3)])
+    assert replays == {"graph_launches": 3, "pack_builds": 6,
+                       "intersect_dense": 3}
+    _, after = obs.counted(lambda: obs.count("intersect_dense"))
+    assert after == {"intersect_dense": 1}   # the capture is over
+    assert not obs.on() and obs.last_record() is None
+
+
 def test_replays_while_off_queue_nothing_and_disarm_the_stamps():
     g = _graph(0, NESTED)
     obs.replaying(g)
@@ -320,7 +350,6 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     read per flag and per pass, and the accumulation and the kernels'
     launches equal the eager passes' bit for bit."""
     from pbrpathtracer_tpu_torch.engine import compiled
-    from pbrpathtracer_tpu_torch.kernels import native
     from pbrpathtracer_tpu_torch.ops.integrator import render_sample
     cfg = RenderConfig(width=64, height=48, max_depth=3, seed=11)
     s = _session(dev, cfg)
@@ -341,11 +370,9 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
         runs.append(out[1])
         return out
     monkeypatch.setattr(compiled, "run_segments", counted)
-    before = {f: f.launches for f in native.COUNTED}
     with obs.tracing():
-        s.step(3)
+        _, replay = obs.counted(lambda: s.step(3))
     rec = obs.last_record()
-    replay = {f: f.launches - n for f, n in before.items()}
     assert rec["calls"] == 3 and len(runs) == 3
     got = {k: rec["counts"][k] for k in ("graph_launches", "host_reads",
                                           "dead_segments", "pack_builds")}
@@ -358,15 +385,18 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     assert all(rec["device_ms"][k] > 0 for k in LAYERS + ("pbr.graph",))
     assert rec["graph_gap_ms"] > 0
     # the same samples eagerly, tracing on: the same sum and launches
+    eager_counts = collections.Counter()
     with torch.inference_mode():
         eager = torch.zeros_like(s.accum)
         for k in range(5):
-            if k == 2:
-                before = {f: f.launches for f in native.COUNTED}
             with obs.tracing():
-                eager = eager + render_sample(scene, cam, cfg, k)
+                radiance, moved = obs.counted(
+                    lambda: render_sample(scene, cam, cfg, k))
+            eager = eager + radiance
+            if k >= 2:
+                eager_counts.update(moved)
     assert torch.equal(eager, s.accum)
-    assert replay == {f: f.launches - n for f, n in before.items()}
+    assert _launches(replay) and _launches(replay) == _launches(eager_counts)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,7 @@ from pbrpathtracer_tpu_torch import bridge
 from pbrpathtracer_tpu_torch.kernels import packgather as K
 from pbrpathtracer_tpu_torch.ops import shadepack as psp
 from pbrpathtracer_tpu_torch.ops.intersect_vjp import TRI9_FIELDS
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -65,11 +66,10 @@ def test_backward_matches_pallas_interpret(T, W, N):
 def test_backward_takes_the_plain_version_on_cpu():
     table, idx = _case(4, 36, 55, 64, out_of_range=True)
     tab = torch.tensor(table, requires_grad=True)
-    kernel = K.gather_rows_t_bwd.launches
-    plain = K.gather_rows_t_bwd_plain.launches
-    K.gather_rows_t(tab, torch.tensor(idx)).sum().backward()
-    assert K.gather_rows_t_bwd.launches == kernel
-    assert K.gather_rows_t_bwd_plain.launches == plain + 1
+    _, moved = obs.counted(
+        lambda: K.gather_rows_t(tab, torch.tensor(idx)).sum().backward())
+    assert moved.get("gather_rows_t_bwd", 0) == 0
+    assert moved["gather_rows_t_bwd_plain"] == 1
     ok = (idx >= 0) & (idx < 36)
     counts = np.bincount(idx[ok], minlength=36).astype(np.float32)
     np.testing.assert_array_equal(tab.grad.numpy(),
@@ -183,16 +183,22 @@ def test_launch_counters_count_one_per_call(graph):
     table, idx = _case(10, 36, 55, 256, out_of_range=True)
     tab = torch.tensor(table, requires_grad=graph)
     ids = torch.tensor(idx)
-    counters = (K.gather_rows_t, K.gather_rows_t_plain, K.gather_rows_t_bwd,
-                K.gather_rows_t_bwd_plain)
-    before = [f.launches for f in counters]
-    outs = [psp.gather_fields(tab, ids, psp.TRI_FIELDS) for _ in range(3)]
-    outs.append((K.gather_rows_t(tab, ids),))
-    assert [f.launches - b for f, b in zip(counters, before)] == [0, 4, 0, 0]
+    counters = ("gather_rows_t", "gather_rows_t_plain", "gather_rows_t_bwd",
+                "gather_rows_t_bwd_plain")
+
+    def launches(moved):
+        return [moved.get(k, 0) for k in counters]
+
+    def forward():
+        outs = [psp.gather_fields(tab, ids, psp.TRI_FIELDS)
+                for _ in range(3)]
+        return outs + [(K.gather_rows_t(tab, ids),)]
+    outs, moved = obs.counted(forward)
+    assert launches(moved) == [0, 4, 0, 0]
     if graph:
-        sum(o[0].sum() for o in outs).backward()
-        assert [f.launches - b for f, b in zip(counters, before)] == [
-            0, 4, 0, 4]
+        _, back = obs.counted(
+            lambda: sum(o[0].sum() for o in outs).backward())
+        assert launches(back) == [0, 0, 0, 4]
 
 
 @pytest.mark.parametrize("W", [1, 7, 9, 13, 55, 226])
@@ -270,10 +276,9 @@ def test_port_field_layout_matches_jax():
 
 def test_cpu_tensors_take_the_plain_version():
     table, idx = _case(2, 36, 55, 64)
-    kernel, plain = K.gather_rows_t.launches, K.gather_rows_t_plain.launches
-    K.gather_rows_t(torch.tensor(table), torch.tensor(idx))
-    assert K.gather_rows_t.launches == kernel
-    assert K.gather_rows_t_plain.launches == plain + 1
+    _, moved = obs.counted(
+        lambda: K.gather_rows_t(torch.tensor(table), torch.tensor(idx)))
+    assert moved == {"gather_rows_t_plain": 1}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -409,11 +414,12 @@ def test_tri_pack_from_the_material_table_equals_the_ten_gathers(name):
         leaves = {f: getattr(scene.materials, f).clone().requires_grad_()
                   for f in MATERIAL_FIELDS}
         m = dataclasses.replace(scene.materials, **leaves)
-        before = K.gather_rows_t_bwd_plain.launches
-        pack = build(scene.geom, m)
-        grads = torch.autograd.grad((pack * cot).sum(), list(leaves.values()))
-        results.append((pack, grads, K.gather_rows_t_bwd_plain.launches
-                        - before))
+        def built():
+            pack = build(scene.geom, m)
+            return pack, torch.autograd.grad((pack * cot).sum(),
+                                             list(leaves.values()))
+        (pack, grads), moved = obs.counted(built)
+        results.append((pack, grads, moved.get("gather_rows_t_bwd_plain", 0)))
     (pack, grads, k3), (ref_pack, ref_grads, ref_k3) = results
     assert pack.shape == (scene.geom.num_triangles, psp.TRI_PACK_WIDTH)
     assert torch.equal(pack, ref_pack)

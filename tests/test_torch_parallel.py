@@ -21,9 +21,9 @@ the JAX side on the virtual 8-device CPU mesh of tests/conftest.py. Inputs
 * the overlapped step (spp 3) against the port's fused step (loss rtol 1e-6,
   parameters atol 1e-6, as tests/test_parallel.py) and the JAX overlapped
   step;
-* ``all_reduce_flat.calls``: 1 per fused step, spp + 1 per overlapped step,
-  0 per forward render; its bytes for a textured step are 4 x (parameter
-  elements + 1).
+* ``all_reduce_flat``'s counts (``all_reduces``, ``all_reduce_bytes``):
+  1 per fused step, spp + 1 per overlapped step, 0 per forward render; its
+  bytes for a textured step are 4 x (parameter elements + 1).
 """
 
 import functools
@@ -159,10 +159,9 @@ def test_render_sharded_equals_render_and_jax(mesh, order, sample_start):
     scene = pb.cornell_box(device="cpu")
     cfg = RenderConfig(width=16, height=16, max_depth=2, spp=2, seed=4,
                        pixel_order=order)
-    all_reduce_flat.calls = 0
-    img = render_sharded(scene, CAM, cfg, mesh=mesh,
-                         sample_start=sample_start)
-    assert all_reduce_flat.calls == 0
+    img, moved = obs.counted(lambda: render_sharded(
+        scene, CAM, cfg, mesh=mesh, sample_start=sample_start))
+    assert "all_reduces" not in moved
     assert not img.is_inference() and img.shape == (16, 16, 3)
     ref = render_accumulate(scene, CAM, cfg, torch.zeros((256, 3)),
                             sample_start, cfg.spp) / float(cfg.spp)
@@ -292,9 +291,9 @@ def test_overlapped_step_matches_fused_and_jax(mesh):
 
 def test_all_reduce_counts_and_bytes(mesh):
     def counted(fn):
-        all_reduce_flat.calls = all_reduce_flat.bytes = 0
-        out = fn()
-        return out, all_reduce_flat.calls, all_reduce_flat.bytes
+        out, moved = obs.counted(fn)
+        return out, moved.get("all_reduces", 0), moved.get(
+            "all_reduce_bytes", 0)
     sgd = functools.partial(torch.optim.SGD, lr=1e-2)
     (_, p, _, _), calls, n_bytes = counted(lambda: _port_step(
         make_train_step, mesh, STEP_CFG, sgd))

@@ -28,8 +28,6 @@ from pbrpathtracer_tpu.scene.big_scenes import \
 from pbrpathtracer_tpu.scene.scene import Camera as JCamera
 from pbrpathtracer_tpu.utils import observability as j_obs
 from pbrpathtracer_tpu_torch import RenderConfig, bridge, pick, preview_render
-from pbrpathtracer_tpu_torch.kernels import intersect as KI
-from pbrpathtracer_tpu_torch.kernels import intersect_list as KL
 from pbrpathtracer_tpu_torch.scene import builders as pb
 from pbrpathtracer_tpu_torch.scene.scene import Camera, finalize_scene
 from pbrpathtracer_tpu_torch.utils import observability as p_obs
@@ -171,11 +169,10 @@ def test_preview_blended_transparency():
     element draws opaque; every layer equals the JAX preview's."""
     scene = pb.translucent_scene(device="cpu")
     assert scene.has_translucent
-    before = KI.intersect_dense_plain.launches
-    out = preview_render(scene, CAM, 48, 48)
+    out, moved = p_obs.counted(lambda: preview_render(scene, CAM, 48, 48))
     # five layers, each one query of the dense route (its plain version
     # here, where the tensors lie on the CPU)
-    assert KI.intersect_dense_plain.launches - before == 5
+    assert moved["intersect_dense_plain"] == 5
     color, eid = out[0].numpy(), out[2].numpy()
     assert np.isfinite(color).all()
     glass = eid == 6        # the pick buffer reports the front-most surface
@@ -215,11 +212,9 @@ def test_preview_of_a_large_scene_takes_the_bvh_route():
     js = j_mesh_scene(3000)
     scene, cam = from_reference(js, j_mesh_camera())
     assert scene.num_triangles > 2048
-    before = (KL.intersect_list_plain.launches,
-              KI.intersect_dense_plain.launches)
-    out = preview_render(scene, cam, 16, 16)
-    assert KL.intersect_list_plain.launches == before[0] + 1
-    assert KI.intersect_dense_plain.launches == before[1]
+    out, moved = p_obs.counted(lambda: preview_render(scene, cam, 16, 16))
+    assert moved["intersect_list_plain"] == 1
+    assert moved.get("intersect_dense_plain", 0) == 0
     _assert_matches_jax(out, _jax_preview(js, 16, jcam=j_mesh_camera()))
 
 

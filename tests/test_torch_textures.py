@@ -27,10 +27,10 @@ from pbrpathtracer_tpu.utils.constants import (TEX_DIFFUSE, TEX_EMISSIVE,
                                                TEX_OPACITY, TEX_ROUGHNESS)
 from pbrpathtracer_tpu_torch import RenderConfig, render
 from pbrpathtracer_tpu_torch import bridge
-from pbrpathtracer_tpu_torch.kernels import packgather as KP
 from pbrpathtracer_tpu_torch.ops.hit import interpolate_uv
 from pbrpathtracer_tpu_torch.ops.texture import sample_texture, texel_coords
 from pbrpathtracer_tpu_torch.scene.scene import Textures as PTextures
+from pbrpathtracer_tpu_torch.utils import observability as obs
 
 # The port's scenes live on the card by default; these tests run on the CPU.
 from_reference = functools.partial(bridge.from_reference, device="cpu")
@@ -182,11 +182,11 @@ def test_sample_texture_equals_the_indexed_read(case):
     for read in (sample_texture, _indexed_read):
         data = textures.data.clone().requires_grad_()
         tex = PTextures(data=data, size=textures.size)
-        before = KP.gather_rows_t_bwd_plain.launches
-        out = read(tex, idx, uv, fallback, mask)
-        (grad,) = torch.autograd.grad((out * cot).sum(), data)
-        results.append((out, grad, KP.gather_rows_t_bwd_plain.launches
-                        - before))
+        def run():
+            out = read(tex, idx, uv, fallback, mask)
+            return out, torch.autograd.grad((out * cot).sum(), data)[0]
+        (out, grad), moved = obs.counted(run)
+        results.append((out, grad, moved.get("gather_rows_t_bwd_plain", 0)))
     (out, grad, k3), (ref_out, ref_grad, _) = results
     assert torch.equal(out, ref_out)
     assert torch.equal(grad, ref_grad)
