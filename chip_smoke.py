@@ -5,6 +5,7 @@ sharded and measurement paths once on one CUDA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 [--root TREE]   # phase 29 alone, on TREE's port
     python3 chip_smoke.py --compiled           # phases 32 to 34 alone
+    python3 chip_smoke.py --shade              # phase 35 alone
     python3 chip_smoke.py --latency [--root TREE]   # a new key's wait
 
 (``--root`` takes a tree of the port that has ``utils/roofline.py``, where
@@ -228,7 +229,7 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                one. Flagship fwd+bwd milliseconds and peak memory of the
                three modes. (Every fwd+bwd here is the eager program.)
 29. K2 shapes -- K2 at every shape its paths give it, with the ids the
-               renders feed it (caught from ``gather_fields``): the Cornell
+               renders feed it (caught from ``gather_block``): the Cornell
                and spheres tri packs on 512^2 primary hit ids, the 50k and 1M
                tri packs on primary hit ids and on segment 2's (a bounce),
                the light pack on NEE light ids, the W = 9 tables of Cornell,
@@ -335,6 +336,22 @@ Phases, one line each, any failure ends the run with a non-zero exit:
                device time and kernels by ``torch.profiler``, K1-K4 in the
                trace against the counters. One ``compiled sharded:`` JSON
                line holds the readings.
+35. shade   -- the fused forward shading segment (S1-S3, ``csrc/shade.cu``)
+               at the session cells' shapes, 1024x768: Cornell and the 50k
+               textured mesh at depth 3, the glass box behind a thin lens at
+               depth 8, seed and sample index as 0-d device words. Every
+               segment of a sample shaded by ``shade_segment`` (which must
+               launch the kernels) and by ``shade_plain`` from the same
+               state and hits: every field of the new state ``torch.equal``.
+               At segment 0 and at the last live segment: CUDA-event ms of
+               each without its hit queries (the shadow query answered by
+               its recorded result), S1-S3's device ms by ``torch.profiler``
+               and the bounds by bytes (``utils/roofline.shade_work``, with
+               K2's fetches for the whole segment). The launches of S1, S2
+               and S3 are counted under their own names: phase 5's render
+               must launch S2 and phase 8's fwd+bwd none; phase 32's
+               forward paths must launch S2 and phase 33's fwd+bwd none,
+               with replays' counts equal to eager ones and to the trace's.
 Every render above runs as a user calls it: on the card a forward render,
 session pass and bench forward step go through the captured sample (its
 first sample of a key eager, the second captured, the later ones replayed;
@@ -768,7 +785,9 @@ def texture_grad_phase(camera, dev):
 KERNEL_COUNTS = ("intersect_dense", "intersect_dense_plain", "intersect_list",
                  "intersect_list_plain", "gather_rows_t",
                  "gather_rows_t_plain", "gather_rows_t_bwd",
-                 "gather_rows_t_bwd_plain")
+                 "gather_rows_t_bwd_plain", "shade_s1", "shade_s2",
+                 "shade_s3")
+SHADE_KERNELS = ("shade_s1", "shade_s2", "shade_s3")
 
 
 def counted_run(what, fn, launched, never=(), autodiff=False):
@@ -2446,21 +2465,22 @@ def hit_vjp_phase(cornell, camera, big, million, primary_ids, rs, dev,
 
 
 def capture_fetches(fn):
-    """Run ``fn`` with ``ops.shadepack.gather_fields`` watched, as
-    ``ops/shade.py`` calls it: returns (fn's result, [(T, W, ids)] of every
-    fetch in call order; the ids copied outside the render's inference
-    mode, so that a graph may use them)."""
+    """Run ``fn`` with ``ops.shadepack.gather_block`` watched, the pack
+    fetch without a graph that ``gather_fields`` and the fused shading
+    segment both call: returns (fn's result, [(T, W, ids)] of every fetch
+    in call order; the ids copied outside the render's inference mode, so
+    that a graph may use them)."""
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
-    seen, fetch = [], sp.gather_fields
+    seen, fetch = [], sp.gather_block
 
-    def watch(table, idx, fields):
+    def watch(table, idx):
         seen.append((table.shape[0], table.shape[1], idx))
-        return fetch(table, idx, fields)
-    sp.gather_fields = watch
+        return fetch(table, idx)
+    sp.gather_block = watch
     try:
         out = fn()
     finally:
-        sp.gather_fields = fetch
+        sp.gather_block = fetch
     return out, [(t, w, x.clone()) for t, w, x in seen]
 
 
@@ -2481,7 +2501,7 @@ def k2_ids(cornell, spheres, big, million, camera, mcam):
                                   ("spheres", spheres, camera, fcfg),
                                   ("50k", big, mcam, mcfg),
                                   ("1M", million, mcam, mcfg)):
-        # eager: a replay of the captured sample calls no gather_fields
+        # eager: a replay of the captured sample calls no gather_block
         _, seen = capture_fetches(lambda: eager_render(scene, cam, cfg))
         tri = [x for _, w, x in seen if w == TRI_PACK_WIDTH]
         require(len(tri) >= 3, f"{name}: {len(tri)} tri-pack fetches")
@@ -2685,7 +2705,7 @@ def k2_main(root):
 
 
 BENCH_KERNELS = ("intersect_dense", "gather_rows_t", "gather_rows_t_bwd",
-                 "intersect_list")
+                 "intersect_list", *SHADE_KERNELS)
 
 
 def bench_phase(cornell, camera, k4, flagship_counts, fwdbwd_counts,
@@ -2902,7 +2922,8 @@ LENS = dict(focal_dist=2.2, aperture=0.04)
 # the device kernel of each counted wrapper, by the start of its short name
 KERNEL_OF = {"intersect_dense": "intersect_dense_kernel",
              "intersect_list": "bvh_intersect_kernel",
-             "gather_rows_t": "fwd_", "gather_rows_t_bwd": "bwd_zero_kernel"}
+             "gather_rows_t": "fwd_", "gather_rows_t_bwd": "bwd_zero_kernel",
+             **{k: f"{k}_kernel" for k in SHADE_KERNELS}}
 
 
 def eager_render(scene, camera, cfg, seed=None):
@@ -2923,7 +2944,7 @@ def eager_render(scene, camera, cfg, seed=None):
 def checked_kernels(what, fn):
     """``device_kernels`` of one call of ``fn``, after two unprofiled calls
     (a render's key replays by then), held against the counters: in the
-    trace, the device kernels of K1, K4 and K2 (``KERNEL_OF``) number what
+    trace, the device kernels of K1-K4 and S1-S3 (``KERNEL_OF``) number what
     the wrappers counted over that call, replays included."""
     import torch
     from pbrpathtracer_tpu_torch.utils import observability
@@ -3099,7 +3120,8 @@ def compiled_session_reading(scene, camera, cfg, smi_line):
     require(entry is not None, "session: the second pass captured nothing")
     times = timed_turns({"eager": eager_pass,
                          "compiled": lambda: b.step(1)}, SESSION_PASSES)
-    launched, never = ("intersect_list", "gather_rows_t"), ("intersect_dense",)
+    launched = ("intersect_list", "gather_rows_t", "shade_s2")
+    never = ("intersect_dense",)
     _, ecounts = counted_run("session pass, eager", eager_pass, launched,
                              never)
     _, ccounts = counted_run("session pass, compiled", lambda: b.step(1),
@@ -3142,8 +3164,10 @@ def compiled_phase(cornell, spheres, big, million, camera, mcam, loaded,
     from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
     from pbrpathtracer_tpu_torch.scene.builders import translucent_scene
     t0 = time.time()
-    k1 = (("intersect_dense", "gather_rows_t"), ("intersect_list",))
-    k4 = (("intersect_list", "gather_rows_t"), ("intersect_dense",))
+    k1 = (("intersect_dense", "gather_rows_t", "shade_s2"),
+          ("intersect_list",))
+    k4 = (("intersect_list", "gather_rows_t", "shade_s2"),
+          ("intersect_dense",))
     big_cfg = RenderConfig(width=RUNG3_SIZE, height=RUNG3_SIZE, max_depth=3,
                            spp=1)
     work = [
@@ -3185,7 +3209,7 @@ def compiled_phase(cornell, spheres, big, million, camera, mcam, loaded,
             r[f"device_kernels_{key}"] = sum(c for c, _ in k.values())
             r[f"device_ms_{key}"] = round(
                 sum(us for _, us in k.values()) / 1e3, 4)
-        print(f"compiled {name}: the trace's K1, K4 and K2 kernels equal "
+        print(f"compiled {name}: the trace's K1-K4 and S1-S3 kernels equal "
               f"the counters; device time per render, "
               + (f"eager {r['device_ms_eager']} ms in "
                  f"{r['device_kernels_eager']} kernels | "
@@ -3572,10 +3596,11 @@ def compiled_grad_phase(cornell, spheres, big, camera, mcam, dev, smi_line):
     from pbrpathtracer_tpu_torch.engine.compiled import GRADS
     from pbrpathtracer_tpu_torch.scene.builders import translucent_scene
     t0 = time.time()
+    # a fwd+bwd records a graph: it shades by the torch chain
     k1 = (("intersect_dense", "gather_rows_t", "gather_rows_t_bwd"),
-          ("intersect_list",))
+          ("intersect_list", *SHADE_KERNELS))
     k4 = (("intersect_list", "gather_rows_t", "gather_rows_t_bwd"),
-          ("intersect_dense",))
+          ("intersect_dense", *SHADE_KERNELS))
     lcam = Camera.make(**CAM_POSE, **LENS).to(dev)
     flag = RenderConfig(**FLAGSHIP)
     lens = dict(materials=True, camera_lens=True)
@@ -3982,6 +4007,175 @@ def sharded_phases(dev, smi_line, cornell, camera, k4, rs, workers):
     return paths, k2_err
 
 
+# Phase 35: the fused shading segment at the session cells' shapes. The
+# seeds and sample indices are 0-d device words, as a session's captured
+# segments read them
+SHADE_SIZE, SHADE_REPS, SHADE_SEED = (1024, 768), 10, 2 ** 31 + 97
+
+
+def shade_reading(name, scene, camera, cfg):
+    """Phase 35 on one scene: every segment of a sample, the fused segment
+    (``shade_segment`` under inference mode, which must take the kernels)
+    against ``shade_plain`` from the same state and hits, ``torch.equal``
+    on every field of the new state; at segment 0 and at the last live
+    one, the time of each without its hit queries (the shadow query
+    answered by its recorded result), S1-S3's device time alone
+    (``torch.profiler``) and the bounds of that work. Returns (launches by
+    kernel, the reading)."""
+    import torch
+    from pbrpathtracer_tpu_torch.ops import integrator, rng, shade
+    from pbrpathtracer_tpu_torch.ops import shadepack as sp
+    from pbrpathtracer_tpu_torch.ops.hit import closest_hit
+    from pbrpathtracer_tpu_torch.ops.integrator import SamplePlan
+    from pbrpathtracer_tpu_torch.utils import observability
+    from pbrpathtracer_tpu_torch.utils.roofline import (bound_ms, k2_work,
+                                                        rows_named,
+                                                        shade_work)
+    fields = ("ro", "rd", "throughput", "radiance", "alive", "inside", "itr",
+              "depth", "pixel")
+    dev = scene.device
+    seed = torch.tensor(SHADE_SEED, dtype=torch.int64, device=dev)
+    sample = torch.tensor(3, dtype=torch.int64, device=dev)
+    lights, textured = scene.num_lights > 0, scene.has_any_texture
+    launches = dict.fromkeys(SHADE_KERNELS, 0)
+    timed, err, segs = [], 0.0, 0
+    with torch.inference_mode():
+        plan = SamplePlan(scene, camera, cfg, sample, seed)
+        state, _, _ = plan.prologue()
+        packs = plan.packs
+        for seg in range(plan.n_segments):
+            if not bool(state.alive.any()):
+                break
+            stream = rng.bounce_stream(seg)
+            hits = closest_hit(scene, cfg, state.ro, state.rd, seed,
+                               state.pixel, sample, stream,
+                               alive=state.alive, uv_pack=packs.uv_opacity)
+            query = integrator._shadow_trace(scene, cfg, seed, state.pixel,
+                                             sample, stream,
+                                             packs.uv_opacity)
+            answers, casting = [], []
+
+            def recorded(p, l, alive=None):
+                casting.append(p.shape[0] if alive is None
+                               else int(alive.sum()))
+                answers.append(query(p, l, alive))
+                return answers[-1]
+            args = (scene, cfg, state, *hits, seg, sample, seed)
+            fused, moved = observability.counted(
+                lambda: shade.shade_segment(*args, recorded, packs))
+            torch.cuda.synchronize()
+            require(moved.get("fused_shades", 0) == 1,
+                    f"shade {name} segment {seg}: the kernels did not run")
+            for k in launches:
+                launches[k] += moved.get(k, 0)
+            plain = shade.shade_plain(*args, recorded, packs)
+            for f in fields:
+                a, b = getattr(fused, f), getattr(plain, f)
+                require(a.dtype == b.dtype and a.shape == b.shape
+                        and torch.equal(a, b),
+                        f"shade {name} segment {seg}: {f} differs from the "
+                        f"torch chain")
+                if a.is_floating_point():
+                    err = max(err, max_abs(a, b))
+            segs += 1
+            n, live = state.ro.shape[0], int((state.alive & hits[0]).sum())
+            if seg == 0 or not bool(fused.alive.any()) \
+                    or seg == plan.n_segments - 1:
+                answer = answers[0] if lights else None
+
+                def replayed(p, l, alive=None):
+                    return answer
+                ms = cuda_ms(lambda: shade.shade_segment(
+                    *args, replayed, packs), SHADE_REPS)
+                plain_ms = cuda_ms(lambda: shade.shade_plain(
+                    *args, replayed, packs), SHADE_REPS)
+                kern = device_kernels(lambda: shade.shade_segment(
+                    *args, replayed, packs))
+                kernel_us = {k: sum(us for name_, (_, us) in kern.items()
+                                    if short_name(name_) == f"{k}_kernel")
+                             for k in launches}
+                cast = casting[0] if lights else 0
+                work = [shade_work(k, n, live, cast, lights, textured)
+                        for k in launches
+                        if k != "shade_s1" or lights or textured]
+                k_bytes = sum(b for b, _ in work)
+                fetch = k2_work(n, sp.TRI_PACK_WIDTH,
+                                rows_named(hits[1], scene.num_triangles))[0]
+                if lights:
+                    fetch += k2_work(n, packs.light.shape[1],
+                                     scene.num_lights)[0]
+                if textured:
+                    tex = scene.textures.data
+                    fetch += k2_work(5 * n, tex.shape[-1],
+                                     min(tex[..., 0].numel() + 1, 5 * n))[0]
+                timed.append({
+                    "segment": seg, "lanes": n, "live": live, "cast": cast,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms(k_bytes + fetch, 0)[0],
+                    "kernel_ms": sum(kernel_us.values()) / 1e3,
+                    "kernel_ms_by_name": {k: v / 1e3
+                                          for k, v in kernel_us.items()},
+                    "kernel_bound_ms": bound_ms(k_bytes, 0)[0],
+                    "kernel_bytes": k_bytes})
+            state = plain
+    print(f"shade {name}: {segs} segments equal to the torch chain bit for "
+          f"bit; launches {launches}; "
+          + "; ".join(f"segment {r['segment']} ({r['live']} of {r['lanes']} "
+                      f"live, {r['cast']} cast): {r['ms']:.4f} ms vs chain {r['plain_ms']:.4f}"
+                      f" ms, bound {r['bound_ms']:.4f} ms; S1-S3 "
+                      f"{r['kernel_ms']:.4f} ms, bound "
+                      f"{r['kernel_bound_ms']:.4f} ms" for r in timed),
+          flush=True)
+    return launches, {"scene": name, "segments": segs, "max_abs_err": err,
+                      "launches": launches, "timed": timed}
+
+
+def shade_phase(dev, smi_line):
+    """Phase 35: the fused shading segment (S1-S3) against its twin at
+    1024x768 on Cornell (depth 3), the 50k textured mesh (depth 3) and the
+    glass box behind a thin lens (depth 8). Returns (launches by path, the
+    readings)."""
+    from pbrpathtracer_tpu_torch import Camera, RenderConfig, builders
+    from pbrpathtracer_tpu_torch.scene.big_scenes import (mesh_scene,
+                                                          mesh_scene_camera)
+    t0 = time.time()
+    w, h = SHADE_SIZE
+    cfg = RenderConfig(width=w, height=h, max_depth=3)
+    work = [("cornell", builders.cornell_box(),
+             Camera.make(**CAM_POSE).to(dev), cfg),
+            ("50k textured", mesh_scene(50_000), mesh_scene_camera().to(dev),
+             cfg),
+            ("glass behind a lens", builders.translucent_scene(),
+             Camera.make(**CAM_POSE, **LENS).to(dev),
+             cfg.replace(max_depth=8))]
+    counts, readings = {}, []
+    for name, scene, cam, c in work:
+        n, r = shade_reading(name, scene, cam, c)
+        counts[f"shade {name} {w}x{h}, one sample by segments"] = n
+        readings.append(r)
+    print(f"shade ({smi_line}): " + json.dumps(readings), flush=True)
+    print(f"phase 35 (shade): {time.time() - t0:.1f} s", flush=True)
+    return counts, readings
+
+
+def shade_main():
+    """Phase 35 alone (``--shade``)."""
+    import torch
+    from pbrpathtracer_tpu_torch.kernels import native
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.time()
+    native.build()
+    native.load()
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    shade_phase(torch.device("cuda", 0), smi_line)
+    print(smi_line, flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -4090,6 +4284,7 @@ def main():
             "a CUDA tensor reached a plain version")
     require(launches["gather_rows_t_bwd"] == 0,
             "a forward-only render ran the backward kernel")
+    require(launches["shade_s2"] > 0, "the render did not shade by S1-S3")
 
     render_ms = cuda_ms(lambda: render(cornell, camera, cfg), 5)
     # kernel shapes of the render: primary rays, their hit ids into the
@@ -4165,6 +4360,8 @@ def main():
     require(all(bwd_launches[f.__name__] == 0 for f in (
         intersect_dense_plain, gather_rows_t_plain, gather_rows_t_bwd_plain)),
         "a CUDA tensor reached a plain version")
+    require(all(bwd_launches[k] == 0 for k in SHADE_KERNELS),
+            "a fwd+bwd shaded by S1-S3, which record no graph")
 
     remat_ms, remat_mb = {}, {}
     for mode in ("hits", "off", "all", "off", "hits"):
@@ -4306,6 +4503,8 @@ def main():
     # ---- 34. the compiled sharded entries against their eager programs ----
     app_counts.update(compiled_sharded_phase(cornell, camera, k4["million"],
                                              k4["scene200k"], smi_line))
+    # ---- 35. the fused shading segment at the session cells' shapes ----
+    shade_counts, shade_readings = shade_phase(dev, smi_line)
 
     print(f"chip_smoke: all phases ok in {time.time() - t_start:.1f} s",
           flush=True)
@@ -4368,6 +4567,22 @@ def main():
          "library_ms": None,
          "launches_by_path": by_path(
              "intersect_list", **{f"rung3_{RUNG3_SPP}spp": k4["launches"]})},
+        {"name": "shade_s1-s3", "route": "cuda",
+         "source": "pbrpathtracer_tpu_torch/csrc/shade.cu",
+         "replaces": None,
+         "launches": sum(sum(c.values()) for c in shade_counts.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in shade_readings),
+         "ms": shade_readings[0]["timed"][0]["ms"],
+         "kernel_ms": shade_readings[0]["timed"][0]["kernel_ms"],
+         "plain_ms": shade_readings[0]["timed"][0]["plain_ms"],
+         "bound_ms": shade_readings[0]["timed"][0]["bound_ms"],
+         "kernel_bound_ms": shade_readings[0]["timed"][0]["kernel_bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shapes": shade_readings,
+         "launches_by_path": {
+             k: {name: v.get(name, 0) for name in SHADE_KERNELS}
+             for k, v in {"flagship": launches,
+                          "flagship_fwd_bwd": bwd_launches, **app_counts,
+                          **shade_counts}.items()}},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4382,6 +4597,8 @@ if __name__ == "__main__":
         k2_main(sys.argv[3] if sys.argv[2:3] == ["--root"] else REPO)
     elif sys.argv[1:2] == ["--compiled"]:
         compiled_main()
+    elif sys.argv[1:2] == ["--shade"]:
+        shade_main()
     elif sys.argv[1:2] == ["--latency"]:
         latency_main(sys.argv[3] if sys.argv[2:3] == ["--root"] else REPO)
     else:

@@ -54,6 +54,10 @@ _SIGNATURES = {
     # idx, cot, n, n_rows, width, sort_tile, chunk, passes, scratch_i,
     # scratch_d, out, stream
     "pbr_packgather_bwd": [_p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p],
+    # &ShadeArgs, stream (kernels/shade.py)
+    "pbr_shade_s1": [_p, _p],
+    "pbr_shade_s2": [_p, _p],
+    "pbr_shade_s3": [_p, _p],
     # slot, stream, out node (utils/observability.py's device spans)
     "pbr_stamp": [_p, _p, ctypes.POINTER(_p)],
     # graph exec, nodes, n, enable

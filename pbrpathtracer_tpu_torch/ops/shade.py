@@ -21,6 +21,13 @@ Reference quirks reproduced on purpose:
     mixes a basis around r with a final axis along n;
   * Schlick's approximation uses (1-c)², not (1-c)⁵.
 
+Two ways to run a segment, one result: on lanes that lie on the card, with
+no autograd graph to record, the fused kernels S1-S3 of
+``kernels/shade.py`` (``_shade_fused``: one thread a lane, around the K2
+fetches and the shadow query) compute the chain bit for bit; everywhere
+else, on the CPU and wherever a graph is recorded (a fwd+bwd), the chain
+runs as plain torch (``shade_plain``), which is also the kernels' twin.
+
 Gradients (``hit_vjp="recompute"``, the JAX package's default): the hit
 queries are stop-gradient'd (``ops/hit.py``), and shading re-derives the
 winning triangle's (t, u, v) in closed form and grafts its derivatives onto
@@ -34,10 +41,13 @@ and nothing is grafted, or it would count twice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..kernels import shade as ks
+from ..kernels.packgather import gather_rows_t_fwd
 from ..scene.scene import Scene
 from ..utils import observability
 from ..utils.constants import (
@@ -224,12 +234,127 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
     built here. Its device time, less the shadow queries, pack builds and
     fetches in it, is the ``pbr.shade`` span's."""
     with observability.device_span("pbr.shade", state.ro.is_cuda):
+        if packs is None:
+            packs = sp.ScenePacks(
+                sp.build_tri_pack(scene),
+                sp.build_light_pack(scene) if scene.num_lights else None,
+                None)
         return _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
                       sample_idx, seed, shadow_trace, packs)
 
 
 def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
            seed, shadow_trace, packs):
+    """The torch chain, ``shade_plain``, where a graph is recorded
+    (something that the segment reads requires grad, and grad mode is on)
+    or the lanes lie on the CPU; else the fused kernels."""
+    if records_graph(state.ro, state.rd, state.throughput, state.radiance,
+                     t, bu, bv, packs.tri, packs.light,
+                     scene.textures.data) or not state.ro.is_cuda:
+        return shade_plain(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
+                           sample_idx, seed, shadow_trace, packs)
+    return _shade_fused(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
+                        sample_idx, seed, shadow_trace, packs)
+
+
+def records_graph(*inputs) -> bool:
+    """Whether a segment over ``inputs`` (tensors, or None) records an
+    autograd graph: grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in inputs)
+
+
+def _lanes(x, dtype, shape):
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise TypeError(f"expected {dtype} {shape}, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _shade_fused(scene, cfg, state, hit, tri_idx, t, bu, bv, seg,
+                 sample_idx, seed, shadow_trace, packs):
+    """``shade_plain`` by the kernels of ``kernels/shade.py`` (S1, S2, S3)
+    around K2 and the shadow query, bit for bit; each segment shaded counts
+    one ``fused_shades``."""
+    N = state.ro.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    tex = scene.textures
+    L = scene.num_lights
+    textured = scene.has_any_texture
+    seed_ptr, seed_bytes, seed_val = ks.word(seed)
+    sample_ptr, sample_bytes, sample_val = ks.word(sample_idx)
+    K, PH, PW, C = tex.data.shape
+    n_texels = K * PH * PW
+    if textured and (C != 4 or n_texels >= 2 ** 31):
+        raise ValueError("the fused texture read takes RGBA stacks of "
+                         "under 2**31 texels")
+    args = dict(
+        ro=_lanes(state.ro, f32, (N, 3)), rd=_lanes(state.rd, f32, (N, 3)),
+        tp=_lanes(state.throughput, f32, (N, 3)),
+        rad=_lanes(state.radiance, f32, (N, 3)),
+        alive=_lanes(state.alive, b8, (N,)),
+        inside=_lanes(state.inside, b8, (N,)),
+        itr=_lanes(state.itr, i32, (N,)),
+        depth=_lanes(state.depth, i32, (N,)),
+        # the RNG keys on the pixel's low 32 bits, whatever its int type
+        pixel=_lanes(state.pixel.to(i32), i32, (N,)),
+        hit=_lanes(hit, b8, (N,)), t=_lanes(t, f32, (N,)),
+        bu=_lanes(bu, f32, (N,)), bv=_lanes(bv, f32, (N,)),
+        tri=sp.gather_block(packs.tri, tri_idx),
+        tex_size=_lanes(tex.size, i32, (K, 2)) if textured else None,
+        seed_ptr=seed_ptr, sample_ptr=sample_ptr, n=N, seed_val=seed_val,
+        sample_val=sample_val, seed_bytes=seed_bytes,
+        sample_bytes=sample_bytes,
+        ctr=(rng.bounce_stream(seg) * rng.SLOTS_PER_STREAM) & 0xFFFFFFFF,
+        n_lights=L, max_depth=cfg.max_depth, tex_ph=PH, tex_pw=PW,
+        n_texels=n_texels,
+        flags=((ks.TEXTURED if textured else 0)
+               | (ks.GGX if cfg.brdf == "ggx" else 0)
+               | (ks.RR_REWEIGHT if cfg.rr_reweight else 0)
+               | (ks.NEE_PHYSICAL if cfg.nee_physical else 0)))
+    dev = state.ro.device
+    empty = functools.partial(torch.empty, device=dev)
+    lid = empty(N, dtype=i32) if L else None
+    rows = empty(5 * N, dtype=i32) if textured else None
+    if L or textured:
+        ks.launch("pbr_shade_s1", rows=rows, lid=lid, **args)
+    if textured:
+        args["texels"] = gather_rows_t_fwd(tex.data.reshape(n_texels, C),
+                                           rows)
+    if L:
+        args["light"] = sp.gather_block(packs.light, lid)
+    out = dict(ro_out=empty((N, 3), dtype=f32),
+               rd_out=empty((N, 3), dtype=f32),
+               tp_out=empty((N, 3), dtype=f32),
+               rad_out=empty((N, 3), dtype=f32),
+               alive_out=empty(N, dtype=b8), inside_out=empty(N, dtype=b8),
+               itr_out=empty(N, dtype=i32), depth_out=empty(N, dtype=i32))
+    shadow = {}
+    if L:
+        shadow = dict(p_sh=empty((N, 3), dtype=f32),
+                      l_sh=empty((N, 3), dtype=f32),
+                      sh_alive=empty(N, dtype=b8),
+                      rad_vis=empty((N, 3), dtype=f32))
+    ks.launch("pbr_shade_s2", **args, **out, **shadow)
+    if L:
+        sh_hit, sh_idx, _, _, _ = shadow_trace(
+            shadow["p_sh"], shadow["l_sh"], shadow["sh_alive"])
+        ks.launch("pbr_shade_s3", **args, **out, **shadow,
+                  sh_hit=_lanes(sh_hit, b8, (N,)),
+                  sh_idx=_lanes(sh_idx, i32, (N,)))
+    observability.count("fused_shades")
+    return WavefrontState(
+        ro=out["ro_out"], rd=out["rd_out"], throughput=out["tp_out"],
+        radiance=out["rad_out"], alive=out["alive_out"],
+        inside=out["inside_out"], itr=out["itr_out"],
+        depth=out["depth_out"], pixel=state.pixel)
+
+
+def shade_plain(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
+                seed, shadow_trace, packs):
+    """The segment in plain torch: the CPU path, the path of a call that
+    records a graph, and the fused kernels' twin (``_shade_fused``). Reads
+    the tri and light packs of ``packs``, as ``_shade_fused`` does."""
     tex = scene.textures
     N = state.ro.shape[0]
     dev = state.ro.device
@@ -252,8 +377,7 @@ def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
      f_diffuse, f_specular, f_emissive, f_emiss_int, f_roughness,
      f_reflectiveness, f_transl, f_ior, f_mtype, f_texidx,
      f_tangent, f_bitangent, f_v0, f_e1, f_e2) = sp.gather_fields(
-         sp.build_tri_pack(scene) if packs is None else packs.tri, tri_idx,
-         sp.TRI_FIELDS)
+         packs.tri, tri_idx, sp.TRI_FIELDS)
 
     if cfg.hit_vjp == "recompute" and torch.is_grad_enabled() and any(
             x.requires_grad for x in (state.ro, rd, f_v0, f_e1, f_e2)):
@@ -379,8 +503,7 @@ def _shade(scene, cfg, state, hit, tri_idx, t, bu, bv, seg, sample_idx,
                               cfg.nee_physical,
                               draws=(d_pick, d_nee_u, d_nee_v),
                               alive=active & diffuse_branch,
-                              light_pack=None if packs is None else
-                              packs.light)
+                              light_pack=packs.light)
     nee = torch.where((active & diffuse_branch)[:, None], nee, 0.0)
 
     # ---- resolve branches ----

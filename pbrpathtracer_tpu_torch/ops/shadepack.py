@@ -116,10 +116,17 @@ def gather_fields(table, idx, fields) -> tuple:
     disjoint and cover the table's columns (the backward concatenates).
     Its forward's device time is the ``pbr.fetch`` span's."""
     plan = _plan_of(tuple(fields), table.shape[1])
-    with observability.device_span("pbr.fetch", table.is_cuda):
-        if torch.is_grad_enabled() and table.requires_grad:
+    if torch.is_grad_enabled() and table.requires_grad:
+        with observability.device_span("pbr.fetch", table.is_cuda):
             return _GatherFields.apply(table, idx, plan)
-        return _split(gather_rows_t_fwd(table, idx), plan)
+    return _split(gather_block(table, idx), plan)
+
+
+def gather_block(table, idx):
+    """The field-major f32[W, N] block of rows ``table[idx]`` that
+    ``gather_fields`` splits, without a graph (the ``pbr.fetch`` span)."""
+    with observability.device_span("pbr.fetch", table.is_cuda):
+        return gather_rows_t_fwd(table, idx)
 
 
 # ---- tri_pack column layout -------------------------------------------------

@@ -41,10 +41,12 @@ a shared no-op context. The counts move either way.
   the one way to note a count, and ``counted(fn)`` reads what a call
   noted. The kernel wrappers and their plain versions count their launches
   under their own names (``intersect_dense``, ``intersect_dense_plain``,
-  ``intersect_list``, ``gather_rows_t``, ``gather_rows_t_bwd`` and so on),
+  ``intersect_list``, ``gather_rows_t``, ``gather_rows_t_bwd``,
+  ``shade_s1`` and so on),
   ``ops.hit.autodiff_intersector`` its queries (``autodiff_queries``) and
   ``ops/shadepack`` its pack builds (``pack_builds``: one per pack a
-  sample, or per use where a caller hands none). The program counts
+  sample, or per use where a caller hands none), ``ops/shade`` the
+  segments that its fused kernels shade (``fused_shades``). The program counts
   ``graph_launches`` (replays of captured graphs), ``host_reads`` (its
   blocking reads: ``pbr.read.flag``, ``pbr.read.tail``, ``pbr.read.loss``,
   ``pbr.sync.pass``), ``captures`` and ``regrowths`` (of the compiled
@@ -181,7 +183,7 @@ def auto_resolution(base_width: int, base_height: int, aspect: float):
 # the counts that a record holds (module docstring)
 COUNTERS = ("graph_launches", "host_reads", "dead_segments", "captures",
             "regrowths", "segments", "live_lanes", "segment_lanes",
-            "pack_builds")
+            "pack_builds", "fused_shades")
 TAIL_SHARE = 0.1   # a segment entered with fewer live lanes is in the tail
 
 _NULL = contextlib.nullcontext()

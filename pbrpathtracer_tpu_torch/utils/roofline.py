@@ -29,14 +29,15 @@ What is counted:
     element, a reduction one per floating input element, a matrix product
     2 M N K. This is the traffic of the eager program, which writes every
     intermediate to memory: a fused program would move far fewer bytes.
-  * The hand-written kernels K1-K4: they launch through ``ctypes``
-    (``kernels/native.py``) and dispatch no operator, so each launch's
-    shapes are recorded by its wrapper while ``record_launches`` is open,
-    and its bytes and operations are reckoned from them
-    (``k1_work`` .. ``k4_work``, the same reckonings that ``chip_smoke.py``
-    holds each kernel's time against): every input read once, every output
-    written once, and the operations that this launch's data needs. This is
-    the counterpart of the JAX package's ``pallas_pair_flops``.
+  * The hand-written kernels K1-K4 and S1-S3: they launch through
+    ``ctypes`` (``kernels/native.py``) and dispatch no operator, so each
+    launch's shapes are recorded by its wrapper while ``record_launches`` is
+    open, and its bytes and operations are reckoned from them (``k1_work``
+    .. ``k4_work``, ``shade_work``, the same reckonings that
+    ``chip_smoke.py`` holds each kernel's time against): every input read
+    once, every output written once, and the operations that this launch's
+    data needs. This is the counterpart of the JAX package's
+    ``pallas_pair_flops``.
 
 The model prices the work the step issues at peak rates: a utilization
 measure, not a proof that less work could not do.
@@ -167,9 +168,43 @@ def k4_walk_work(n_rays: int, nodes_per_ray: float,
                       + tris_per_ray * PAIR_OPS))
 
 
+def shade_work(kernel: str, n: int, live: int, cast: int, lights: bool,
+               textured: bool) -> tuple[int, int]:
+    """S1, S2 or S3 (``kernels/shade.py``) over ``n`` lanes, ``live`` of
+    them alive and hit and ``cast`` of them casting a shadow ray: the bytes
+    that every such lane reads and writes, whatever its branches. Left out,
+    so that the time is a least one: the reads that a lane's branch decides
+    (vertex normals of smooth triangles, specular, ior and translucency,
+    the tangent frame under a normal map, the texels of its textured slots,
+    the light's colour, the radiance of a lane that sees its light). A dead
+    lane reads its flags and, in S2, copies its state. Operations are not
+    reckoned: a few hundred FP32 operations a lane take under a tenth of
+    its bytes' time."""
+    dead = n - live
+    if kernel == "shade_s1":
+        # alive, hit, itr (and pixel for the light pick); lid; texel rows
+        # from bu, bv, the uv and texture-index columns
+        writes = (4 if lights else 0) + (20 if textured else 0)
+        return (live * (6 + (4 if lights else 0) + (52 if textured else 0)
+                        + writes)
+                + dead * (1 + writes)), 0
+    if kernel == "shade_s2":
+        # the state in (less pixel for a dead lane) and out; t, bu, bv and
+        # 14 columns of the tri rows (the texture indices where textured);
+        # the shadow mask; a casting lane's light corners and colour, its
+        # shadow ray and stash
+        mask = 1 if lights else 0
+        return (live * (75 + 56 + (20 if textured else 0) + 58 + mask)
+                + cast * (48 + 36) + dead * (58 + 58 + mask)), 0
+    if kernel == "shade_s3":
+        # the mask; a casting lane's shadow hit and its light's triangle
+        return n + cast * 5, 0
+    raise ValueError(f"no reckoning for kernel {kernel!r}")
+
+
 @contextlib.contextmanager
 def record_launches():
-    """While open, every launch of K1-K4 appends ``(kernel, shapes)`` to the
+    """While open, every launch of K1-K4 and S1-S3 appends ``(kernel, shapes)`` to the
     list this yields (``kernels/native.launch_records``); ``kernel_work``
     prices them. Records hold the tensors that decide a launch's work (the
     live mask, the ids, the hits), so keep a window to one step."""
@@ -199,6 +234,12 @@ def launch_work(kernel: str, shapes: dict) -> tuple[int, int]:
         return k4_work(_live(shapes["n"], shapes["alive"]),
                        shapes["n_nodes"], shapes["n_tris"],
                        int(shapes["hit"].sum()), shapes["leaf_size"])
+    if kernel.startswith("shade_"):
+        cast = shapes["cast"]
+        return shade_work(kernel, shapes["n"],
+                          int((shapes["alive"] & shapes["hit"]).sum()),
+                          0 if cast is None else int(cast.sum()),
+                          shapes["lights"], shapes["textured"])
     raise ValueError(f"no reckoning for kernel {kernel!r}")
 
 

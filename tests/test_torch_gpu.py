@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _shade_cases as shade_cases
 from _torch_common import watchdog  # noqa: F401  (autouse)
 from chip_smoke import eager_render, flat_plane_scene
 from pbrpathtracer_tpu_torch import (Camera, RenderConfig, builders,
@@ -220,7 +221,7 @@ def test_packgather_kernel_on_a_bounce_segment(dev):
     from pbrpathtracer_tpu_torch.ops import shadepack as sp
     scene = mesh_scene(50_000)
     cfg = RenderConfig(width=128, height=128, max_depth=3, spp=1)
-    # eager: a replay of the captured sample calls no gather_fields
+    # eager: a replay of the captured sample calls no gather_block
     _, seen = capture_fetches(lambda: eager_render(
         scene, mesh_scene_camera().to(dev), cfg))
     ids = [x for _, w, x in seen if w == sp.TRI_PACK_WIDTH][2]
@@ -1442,3 +1443,130 @@ def test_a_session_restarted_on_edited_scenes_keeps_its_memory(dev):
     assert len(reserved) == 16
     assert max(reserved[3:]) <= reserved[2] + (64 << 20), reserved
     assert lines[-1] == "True"
+
+
+# ---- the fused forward shading segment (csrc/shade.cu) -----------------------
+
+def _differ(a, b):
+    """{field: lanes that differ} between two states, torch.equal's way."""
+    out = {}
+    for f in shade_cases.FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        if not torch.equal(x, y):
+            ne = x != y
+            if ne.dim() > 1:
+                ne = ne.any(-1)
+            lanes = ne.nonzero().flatten()
+            out[f] = (int(lanes.numel()), lanes[:4].tolist())
+    return out
+
+
+@pytest.mark.parametrize("word", ["int", "tensor"])
+@pytest.mark.parametrize("name", ["cornell", "textured", "translucent",
+                                  "ggx_rr_nee", "no_lights"])
+def test_fused_shading_equals_the_torch_chain(dev, name, word):
+    """Every segment of a 256x192 sample, at three seeds: the fused
+    kernels (``shade_segment`` on the card, no graph) against
+    ``shade_plain`` from the same state and hits, every field of the state
+    with ``torch.equal``; the seed and sample index as Python ints or as
+    0-d device tensors (read through their pointers)."""
+    from pbrpathtracer_tpu_torch.ops import shade
+    scene, cam, cfg = shade_cases.case(name, dev, 256, 192, 50_000)
+    for seed in (2 ** 31 + 11, 7, 123_456_789):
+        seed_w, sample_w = seed, 5
+        if word == "tensor":
+            seed_w = torch.tensor(seed, dtype=torch.int64, device=dev)
+            sample_w = torch.tensor(5, dtype=torch.int64, device=dev)
+        fused = []
+
+        def shade_fused(*args):
+            out, moved = obs.counted(lambda: shade.shade_segment(*args))
+            fused.append(moved.get("fused_shades", 0))
+            return out
+        segs = 0
+        for seg, a, b in shade_cases.segment_pairs(
+                scene, cam, cfg, seed_w, sample_w, shade_fused,
+                shade.shade_plain):
+            assert _differ(a, b) == {}, (name, seed, seg, _differ(a, b))
+            segs += 1
+        assert segs >= 2 and fused == [1] * segs
+
+
+def test_captured_pass_with_fused_shading_equals_the_eager_pass(dev):
+    """A session pass replayed from its graphs equals the eager pass bit
+    for bit with the fused kernels in both, and counts one
+    ``fused_shades`` per segment run, eager or replayed."""
+    from pbrpathtracer_tpu_torch.engine.compiled import SAMPLES
+    for name in ("cornell", "textured", "translucent"):
+        scene, cam, cfg = shade_cases.case(name, dev, 256, 192, 50_000)
+        for k in range(2):                 # eager, then the capture
+            SAMPLES.sample(scene, cam, cfg, k)
+        for k in (2, 3):
+            (img, moved) = obs.counted(
+                lambda: SAMPLES.sample(scene, cam, cfg, k))
+            with torch.inference_mode():
+                eager, em = obs.counted(
+                    lambda: render_sample(scene, cam, cfg, k))
+            assert torch.equal(img, eager), (name, k)
+            assert moved["fused_shades"] == moved["segments"] > 0
+            assert em["fused_shades"] == em["segments"] == moved["segments"]
+
+
+@pytest.mark.parametrize("leaves", shade_cases.LEAVES)
+def test_a_gradient_on_the_card_shades_by_the_torch_chain(dev, leaves):
+    """A call on the card that records a graph shades by the torch chain
+    and counts no ``fused_shades``, whichever leaves require grad: one
+    segment of the textured mesh under grad has the loss and gradients of
+    ``shade_plain`` called directly; with the materials, the textures or
+    the camera's lens as ``get_params``' leaves, a fwd+bwd, eager or
+    captured, has the eager fwd+bwd's gradients through ``shade_plain``,
+    while its target render (no graph) takes the kernels. Deterministic
+    algorithms, so that both sides may be held bit for bit."""
+    from pbrpathtracer_tpu_torch.diff.loss import eager_loss_and_grad
+    from pbrpathtracer_tpu_torch.diff.params import get_params
+    from pbrpathtracer_tpu_torch.ops import shade
+
+    def equal(a, b):
+        (la, ga), (lb, gb) = a, b
+        assert torch.equal(la, lb) and ga.keys() == gb.keys()
+        for k, g in ga.items():
+            assert (g is None) == (gb[k] is None), k
+            assert g is None or torch.equal(g, gb[k]), (leaves, k)
+
+    def plain(*args):
+        return shade.shade_plain(*args)
+    torch.use_deterministic_algorithms(True)
+    try:
+        scene, cam, cfg = shade_cases.case("textured", dev, 64, 48, 3000)
+        got, moved = obs.counted(lambda: shade_cases.segment_grads(
+            scene, cam, cfg, leaves, shade.shade_segment))
+        assert moved.get("fused_shades", 0) == 0
+        equal(got, shade_cases.segment_grads(scene, cam, cfg, leaves,
+                                             shade.shade_plain))
+        assert any(g is not None and bool(g.abs().sum() > 0)
+                   for g in got[1].values())
+        if leaves == "geometry":           # not a get_params leaf
+            return
+        cfg = cfg.replace(spp=1)
+        target, moved = obs.counted(lambda: render(scene, cam, cfg))
+        assert moved["fused_shades"] > 0
+        params = get_params(scene, cam, materials=leaves == "materials",
+                            textures=leaves == "textures",
+                            camera_lens=leaves == "camera")
+        eager, moved = obs.counted(lambda: eager_loss_and_grad(
+            params, scene, cam, cfg, target * 0.9))
+        assert moved.get("fused_shades", 0) == 0
+        for _ in range(3):                 # eager, capture, replay
+            _, moved = obs.counted(lambda: grad_render(
+                scene, cam, cfg, target * 0.9,
+                materials=leaves == "materials",
+                textures=leaves == "textures",
+                camera_lens=leaves == "camera"))
+            assert moved.get("fused_shades", 0) == 0
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(shade, "_shade", plain)
+            equal(eager, eager_loss_and_grad(params, scene, cam, cfg,
+                                             target * 0.9))
+    finally:
+        torch.use_deterministic_algorithms(False)

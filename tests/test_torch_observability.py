@@ -193,7 +193,7 @@ def test_counts_of_session_passes(passes):
         "host_reads": _reads(runs, PASS_CFG.resolved_max_segments()),
         "segments": sum(runs), "live_lanes": live,
         "segment_lanes": sum(runs) * PASS_CFG.num_pixels,
-        "pack_builds": 2 * passes}
+        "pack_builds": 2 * passes, "fused_shades": 0}
 
 
 def test_counts_of_fit_steps():
@@ -375,13 +375,15 @@ def test_captured_graphs_carry_their_spans(dev, monkeypatch):
     rec = obs.last_record()
     assert rec["calls"] == 3 and len(runs) == 3
     got = {k: rec["counts"][k] for k in ("graph_launches", "host_reads",
-                                          "dead_segments", "pack_builds")}
+                                          "dead_segments", "pack_builds",
+                                          "fused_shades")}
     # a flag read before each segment run and one that stopped each pass;
     # one sync after the three passes of the step; the prologue graph's
-    # two pack builds (tri and light) a pass
+    # two pack builds (tri and light) a pass; every segment run fused
     assert got == {"graph_launches": sum(runs) + 3,
                    "host_reads": _reads(runs, cfg.resolved_max_segments())
-                   + 1, "dead_segments": 0, "pack_builds": 6}, (runs, rec)
+                   + 1, "dead_segments": 0, "pack_builds": 6,
+                   "fused_shades": sum(runs)}, (runs, rec)
     assert all(rec["device_ms"][k] > 0 for k in LAYERS + ("pbr.graph",))
     assert rec["graph_gap_ms"] > 0
     # the same samples eagerly, tracing on: the same sum and launches
